@@ -1,0 +1,27 @@
+"""dexqv — compress .quiva to .dexqv (reference dexqv.c)."""
+
+from __future__ import annotations
+
+import sys
+
+from dextractor_tpu.cli._common import codec_tool
+
+from ..codecs.qv_codec import encode_quiva_to_dexqv
+
+USAGE = "[-vkl] <path:quiva> ..."
+HELP = (
+    "-k: do *not* remove the .quiva file on completion.",
+    "-l: lossy compression of the QV streams.",
+)
+
+
+def main(argv=None) -> int:
+    return codec_tool(
+        "dexqv", USAGE, HELP, ".quiva", ".dexqv",
+        lambda data, flags, opts: encode_quiva_to_dexqv(data, lossy=flags["l"]),
+        flags_str="vkl",
+        argv=argv, pipe_ok=False)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,360 @@
+""".quiva -> .dexqv encode (``dextractor_tpu/codecs/qv_codec.py``).
+
+Two-pass flow matching dexqv.c:79-143: a statistics scan over the whole
+file builds six histograms (with the reference's order-dependent
+delChar/subChar discovery, QV.c:895-918), the Huffman schemes are built
+once per file (QV.c:1029-1136), then every entry's five streams are
+encoded — by the native C channel encoder on the host (``device=False``)
+or as batched device steps (parallel/pipeline.qv_encode_step), one per
+quarter-octave row-length bucket.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from dextractor_tpu.formats import quiva as qv
+from dextractor_tpu.native import qv_encode_shim
+from dextractor_tpu.formats.ragged import bucket_len, bucket_rows, pad_rows, rows_to_flat
+from dextractor_tpu.utils.errors import FormatError
+
+from ..formats import dexqv as dq
+from ..ops import bitstream_torch as bt
+from ..ops import twobit as tb
+from ..ops.huffman import make_scheme
+from ..parallel.pipeline import null_run_luts, qv_encode_step
+from ..utils.dispatch import resolve_device
+from ..utils.profiling import stage
+
+DEL, TAG, INS, MRG, SUB = range(5)
+
+
+@dataclass
+class QVStats:
+    del_hist: np.ndarray
+    ins_hist: np.ndarray
+    mrg_hist: np.ndarray
+    sub_hist: np.ndarray
+    del_run: np.ndarray
+    sub_run: np.ndarray
+    del_char: int
+    sub_char: int
+    tot_char: int
+
+
+def _ptr(a):
+    import ctypes
+
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _run_hist_entries(streams_flat, offsets, r0, rchar):
+    """Histogram_Runs (QV.c:702-724) over entries [r0, n) in one native
+    pass: one run token (the rchar run length, possibly 0) before each
+    literal, plus a trailing symbol-less run token when an entry ends in
+    rchar characters."""
+    lo, hi = int(offsets[r0]), int(offsets[-1])
+    hist = np.zeros(256, np.int64)
+    if hi <= lo:
+        return hist
+    seg = np.ascontiguousarray(streams_flat[lo:hi])
+    bnd = np.ascontiguousarray(np.asarray(offsets[r0:], np.int64) - lo)
+    qv_encode_shim().dxt_run_hist(_ptr(seg), _ptr(bnd), len(bnd) - 1,
+                                  int(rchar), _ptr(hist))
+    return hist
+
+
+def scan_streams(streams: np.ndarray, lengths: np.ndarray) -> QVStats:
+    """QVcoding_Scan / QVcoding_Scan1 (QV.c:860-1023) with the reference's
+    exact order-dependent semantics.  ``streams`` is (5, total) u8 with
+    entry boundaries given by ``lengths``."""
+    n_entries = len(lengths)
+    off = np.zeros(n_entries + 1, np.int64)
+    np.cumsum(lengths, out=off[1:])
+    total = int(off[-1])
+
+    # one native pass for the four flat histograms and the first 'n'/'N'
+    # delTag in file order
+    hist4 = np.zeros((4, 256), np.int64)
+    fn = np.zeros(1, np.int64)
+    rows = [np.ascontiguousarray(streams[c]) for c in (DEL, INS, MRG, SUB, TAG)]
+    qv_encode_shim().dxt_qv_scan_hists(*(_ptr(r) for r in rows), total,
+                                       _ptr(hist4), _ptr(fn))
+    del_hist, ins_hist, mrg_hist, sub_hist = hist4
+    first_n = int(fn[0])
+
+    # delChar: the delQV under the first 'n'/'N' delTag (QV.c:993-1002);
+    # its run histogram covers that entry onward.
+    del_run = np.ones(256, np.int64)                    # init to 1 (QV.c:934-935)
+    if first_n >= 0:
+        k = first_n
+        del_char = int(streams[DEL][k])
+        r0 = int(np.searchsorted(off, k, "right") - 1)
+        del_run += _run_hist_entries(streams[DEL], off, r0, del_char)
+    else:
+        del_char = -1
+
+    # subChar: chosen at the first entry where cumulative chars >= 100000,
+    # as the mode of the substitution histogram so far (QV.c:1006-1017);
+    # its run histogram covers that entry onward.
+    sub_run = np.ones(256, np.int64)
+    sub_char = -1
+    if total >= 100000:
+        r1 = int(np.searchsorted(off[1:], 100000, "left"))
+        part = np.bincount(streams[SUB][: off[r1 + 1]], minlength=256)
+        sub_char = int(np.argmax(part))                  # first max, like the C scan
+        sub_run += _run_hist_entries(streams[SUB], off, r1, sub_char)
+
+    return QVStats(del_hist, ins_hist, mrg_hist, sub_hist, del_run, sub_run,
+                   del_char, sub_char, total)
+
+
+def scan_quiva(q: qv.QuivaFile) -> QVStats:
+    return scan_streams(q.streams, q.lengths)
+
+
+def create_qvcoding(stats: QVStats, prefix: bytes, lossy: bool = False) -> dq.QVCoding:
+    """Create_QVcoding (QV.c:1029-1153)."""
+    del_hist = stats.del_hist.copy()
+    ins_hist = stats.ins_hist.copy()
+    mrg_hist = stats.mrg_hist.copy()
+    sub_hist = stats.sub_hist.copy()
+    del_char, sub_char = stats.del_char, stats.sub_char
+
+    # keep subChar only if it is at least half of all chars (QV.c:1044-1045)
+    if stats.tot_char < 200000 or sub_hist[sub_char] < 0.5 * stats.tot_char:
+        sub_char = -1
+
+    if lossy:                                            # QV.c:1049-1065
+        ins_hist = ins_hist.reshape(128, 2).sum(1, dtype=np.int64)
+        ins_hist = np.stack([ins_hist, np.zeros(128, np.int64)], 1).reshape(256)
+        mrg_hist = mrg_hist.reshape(64, 4).sum(1, dtype=np.int64)
+        mrg_hist = np.concatenate(
+            [mrg_hist[:, None], np.zeros((64, 3), np.int64)], 1).reshape(256)
+
+    if del_char >= 0:
+        del_hist[del_char] = 0
+        del_scheme = make_scheme(del_hist)
+        drun_scheme = make_scheme(stats.del_run)
+    else:
+        del_scheme = make_scheme(del_hist)
+        drun_scheme = None
+
+    ins_scheme = make_scheme(ins_hist)
+    mrg_scheme = make_scheme(mrg_hist)
+
+    if sub_char >= 0:
+        sub_hist[sub_char] = 0
+        sub_scheme = make_scheme(sub_hist)
+        srun_scheme = make_scheme(stats.sub_run)
+    else:
+        sub_scheme = make_scheme(sub_hist)
+        srun_scheme = None
+
+    return dq.QVCoding(del_scheme, ins_scheme, mrg_scheme, sub_scheme,
+                       drun_scheme, srun_scheme, del_char, sub_char, prefix)
+
+
+def step_tables(coding: dq.QVCoding):
+    """The coding as qv_encode_step's tables: (sym_luts (4, 256),
+    run_luts (4, 256), rchars (4,), number_lut (256,), run_on)."""
+    sym = np.stack([bt.scheme_luts(s) for s in (
+        coding.del_scheme, coding.ins_scheme, coding.mrg_scheme,
+        coding.sub_scheme)])
+    run = np.stack([
+        bt.scheme_luts(coding.drun_scheme, run=True)
+        if coding.drun_scheme else null_run_luts(),
+        null_run_luts(),
+        null_run_luts(),
+        bt.scheme_luts(coding.srun_scheme, run=True)
+        if coding.srun_scheme else null_run_luts(),
+    ])
+    rchars = np.array([coding.del_char, -1, -1, coding.sub_char], np.int32)
+    run_on = (coding.drun_scheme is not None, coding.srun_scheme is not None)
+    return sym, run, rchars, tb.NUMBER_BASE_LUT, run_on
+
+
+def encode_quiva_to_dexqv(data: bytes, lossy: bool = False, device=None) -> bytes:
+    """Encode a .quiva image.
+
+    device=False -> the native C channel encoder on the host;
+    device=True  -> the batched step on the CUDA device (raises without one);
+    "cpu" / "cuda" / a torch.device -> the batched step there ("cpu" runs
+                    the kernels' plain twins);
+    device=None  -> utils/dispatch.device_default(): DXT_DEVICE env
+                    override, else CUDA when present.
+    """
+    with stage("parse", len(data)):
+        q = qv.parse_quiva(data)
+    payload = int(q.lengths.sum()) * 5
+    with stage("scan+tables", payload):
+        stats = scan_quiva(q)
+        coding = create_qvcoding(stats, q.prefix, lossy)
+    dev = resolve_device(device)
+    with stage("encode+assemble", payload):
+        if dev is None:
+            return _encode_entries_native(q, coding, lossy)
+        return _encode_entries_device(q, coding, lossy, dev)
+
+
+def _encode_entries_native(q: qv.QuivaFile, coding: dq.QVCoding, lossy: bool) -> bytes:
+    """All five channels through the C channel encoder (host CPU path)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    lib = qv_encode_shim()
+    n = q.n_entries
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(q.lengths, out=offs[1:])
+    total = int(offs[-1])
+    cap = 8 * total + 64 * n + 1024
+
+    def channel(data, scheme, run_scheme=None, rchar=-1):
+        data = np.ascontiguousarray(data)
+        out = np.empty(cap, np.uint8)
+        out_lens = np.zeros(n, np.int64)
+        bits = np.ascontiguousarray(scheme.codebits.astype(np.uint32))
+        lens = np.ascontiguousarray(scheme.codelens.astype(np.int32))
+        if run_scheme is None:
+            r = lib.dxt_encode_plain(_ptr(data), _ptr(offs), n, _ptr(bits),
+                                     _ptr(lens), int(scheme.type), _ptr(out),
+                                     cap, _ptr(out_lens))
+        else:
+            rbits = np.ascontiguousarray(run_scheme.codebits.astype(np.uint32))
+            rlens = np.ascontiguousarray(run_scheme.codelens.astype(np.int32))
+            r = lib.dxt_encode_run(_ptr(data), _ptr(offs), n, _ptr(bits),
+                                   _ptr(lens), int(scheme.type), _ptr(rbits),
+                                   _ptr(rlens), int(rchar), _ptr(out), cap,
+                                   _ptr(out_lens))
+        if r < 0:
+            raise FormatError("native encode buffer overflow")
+        return out[: int(r)], out_lens
+
+    ins_data = q.streams[INS]
+    mrg_data = q.streams[MRG]
+    if lossy:
+        ins_data = ins_data & 0xFE
+        mrg_data = mrg_data & 0xFC
+
+    tag_out = np.empty(total // 4 + 4 * n + 16, np.uint8)
+    tag_lens = np.zeros(n, np.int64)
+
+    def tag_job():
+        r = lib.dxt_pack_tags(_ptr(np.ascontiguousarray(q.streams[TAG])),
+                              _ptr(np.ascontiguousarray(q.streams[DEL])),
+                              _ptr(offs), n, coding.del_char,
+                              _ptr(tb.NUMBER_BASE_LUT), _ptr(tag_out),
+                              len(tag_out), _ptr(tag_lens))
+        if r < 0:
+            raise FormatError("native tag pack buffer overflow")
+        return r
+
+    # the C calls release the GIL (plain ctypes), so the five independent
+    # channel encodes run on five cores
+    with ThreadPoolExecutor(max_workers=5) as ex:
+        f_del = ex.submit(channel, q.streams[DEL], coding.del_scheme,
+                          coding.drun_scheme, coding.del_char)
+        f_ins = ex.submit(channel, ins_data, coding.ins_scheme)
+        f_mrg = ex.submit(channel, mrg_data, coding.mrg_scheme)
+        f_sub = ex.submit(channel, q.streams[SUB], coding.sub_scheme,
+                          coding.srun_scheme, coding.sub_char)
+        f_tag = ex.submit(tag_job)
+        parts = [f_del.result(), None, f_ins.result(), f_mrg.result(),
+                 f_sub.result()]
+        parts[1] = (tag_out[: int(f_tag.result())], tag_lens)
+    return dq.assemble_dexqv(coding, q.wells, q.begs, q.ends, q.qvs, parts)
+
+
+def _step_parts(step_out, n: int):
+    """qv_encode_step outputs -> the five (flat u8, per-entry byte lengths)
+    parts of entries [0, n); rows past n are shape padding.  Only the
+    words up to the widest row's raw count leave the device."""
+    words, raw, out, dup, zext, packed, clens = step_out
+    raw = raw.cpu().numpy()
+    m = max(int(raw.max(initial=0)), 1)
+    words = words[:, :, :m].cpu().numpy().view(np.uint32)
+    out, dup, zext, packed, clens = (x.cpu().numpy()
+                                     for x in (out, dup, zext, packed, clens))
+    chans = []
+    for c in range(4):
+        f, w = bt.finalize_rows(words[c], raw[c], out[c], dup[c], zext[c])
+        chans.append((f.view(np.uint8), 4 * w[:n]))
+    tag_lens = (clens.astype(np.int64) + 3) >> 2
+    tag = (rows_to_flat(packed, tag_lens), tag_lens[:n])
+    return [chans[0], tag, chans[1], chans[2], chans[3]]
+
+
+def assemble_from_step(step_out, coding: dq.QVCoding, wells, begs, ends,
+                       qvs, n: int) -> bytes:
+    """Build the .dexqv container from one qv_encode_step's outputs over
+    all n entries (rows beyond ``n`` are shape padding)."""
+    return dq.assemble_dexqv(coding, wells, begs, ends, qvs,
+                             _step_parts(step_out, n))
+
+
+def _encode_entries_device(q: qv.QuivaFile, coding: dq.QVCoding, lossy: bool,
+                           device: torch.device) -> bytes:
+    """Encode all entries as batched device steps, one per quarter-octave
+    row-length bucket (formats/ragged.bucket_len; rows padded to
+    bucket_rows), so no row pads to the longest read's width; per-channel
+    outputs scatter back to entry order through the native ragged copy."""
+    n = q.n_entries
+    real_lengths = q.lengths.astype(np.int64)
+    off = np.zeros(n + 1, np.int64)
+    np.cumsum(real_lengths, out=off[1:])
+    kb = np.array([bucket_len(max(int(L), 1), 512) for L in real_lengths],
+                  np.int64) if n else np.zeros(0, np.int64)
+    sym, run, rchars, nlut, run_on = step_tables(coding)
+    tables = [torch.as_tensor(x).to(device) for x in (sym, run, rchars, nlut)]
+
+    chunks = [[] for _ in range(5)]
+    for width in np.unique(kb):
+        sel = np.flatnonzero(kb == width)
+        lens_b = real_lengths[sel]
+        n_b = len(sel)
+        n_pad = bucket_rows(n_b)
+        with stage("device: rects"):
+            idx = np.concatenate([np.arange(off[i], off[i + 1]) for i in sel])
+            flat = q.streams[:, idx]
+            if lossy:
+                flat[INS] &= 0xFE
+                flat[MRG] &= 0xFC
+            rect = np.zeros((5, n_pad, int(width)), np.uint8)
+            for s in range(5):
+                rect[s, :n_b] = pad_rows(flat[s], lens_b, align=int(width))
+            lengths = np.zeros(n_pad, np.int32)
+            lengths[:n_b] = lens_b
+        with stage("device: step+finalize"):
+            step_out = qv_encode_step(torch.from_numpy(rect).to(device),
+                                      torch.from_numpy(lengths).to(device),
+                                      *tables, run_on=run_on)
+            for c, part in enumerate(_step_parts(step_out, n_b)):
+                chunks[c].append((sel, *part))
+
+    def entry_order(chs):
+        """Bucket-order channel chunks -> (flat, per-entry lens) in entry
+        order (one native ragged memcpy per bucket)."""
+        lens_full = np.zeros(n, np.int64)
+        for sel, flat, lens in chs:
+            # device-computed lengths feed unchecked native memcpys; turn an
+            # inconsistent batch into an error instead of heap corruption
+            if (np.asarray(lens) < 0).any() or int(lens.sum()) != len(flat):
+                raise FormatError(
+                    "device encode produced inconsistent stream lengths")
+            lens_full[sel] = lens
+        offs_full = np.zeros(n, np.int64)
+        np.cumsum(lens_full[:-1], out=offs_full[1:])
+        out = np.empty(int(lens_full.sum()), np.uint8)
+        lib = qv_encode_shim()
+        for sel, flat, lens in chs:
+            lib.dxt_ragged_copy(
+                _ptr(out), _ptr(np.ascontiguousarray(offs_full[sel])),
+                _ptr(np.ascontiguousarray(flat)),
+                _ptr(np.ascontiguousarray(lens.astype(np.int64))), len(sel))
+        return out, lens_full
+
+    with stage("device: order+assemble"):
+        parts = [entry_order(ch) for ch in chunks]
+        return dq.assemble_dexqv(coding, q.wells, q.begs, q.ends, q.qvs, parts)

@@ -1,0 +1,132 @@
+"""Byte-exact .dexqv container writer (``dextractor_tpu/formats/dexqv.py``).
+
+Layout (dexqv.c:104-143, QV.c:1173-1320):
+
+  uint16 0x55aa container key
+  QVcoding:
+    uint16 0x33cc codec key
+    uint16 delChar (256 => none), uint16 subChar (256 => none)
+    int32 prefix length + prefix bytes (includes the '@')
+    Huffman schemes in order: del, [dRun if delChar>=0], ins, mrg, sub,
+    [sRun if subChar>=0] — each: type byte + 256 x (len byte [+ u32 code])
+  per entry:
+    well-delta bytes, int32 beg, int32 end, int32 qv
+    bitstreams: delQV (plain|RLE), 2-bit packed delTag, insQV, mrgQV,
+    subQV (plain|RLE)
+"""
+
+from __future__ import annotations
+
+import struct
+from dataclasses import dataclass
+
+import numpy as np
+
+from dextractor_tpu.native import qv_encode_shim
+from dextractor_tpu.utils.errors import FormatError
+
+from ..ops.huffman import HScheme, scheme_bytes
+
+CODEC_KEY = 0x33CC
+CONTAINER_KEY = 0x55AA
+
+
+@dataclass
+class QVCoding:
+    del_scheme: HScheme
+    ins_scheme: HScheme
+    mrg_scheme: HScheme
+    sub_scheme: HScheme
+    drun_scheme: HScheme | None
+    srun_scheme: HScheme | None
+    del_char: int            # -1 if none
+    sub_char: int            # -1 if none
+    prefix: bytes
+
+
+def coding_from_reference(c) -> QVCoding:
+    """The JAX package's ``QVCoding`` (numpy tables) as the port's, so that
+    both sides can encode with the same tables."""
+    def scheme(s):
+        if s is None:
+            return None
+        return HScheme(int(s.type), np.asarray(s.codelens, np.int32).copy(),
+                       np.asarray(s.codebits, np.uint32).copy())
+
+    return QVCoding(scheme(c.del_scheme), scheme(c.ins_scheme),
+                    scheme(c.mrg_scheme), scheme(c.sub_scheme),
+                    scheme(c.drun_scheme), scheme(c.srun_scheme),
+                    int(c.del_char), int(c.sub_char), bytes(c.prefix))
+
+
+def qvcoding_bytes(c: QVCoding) -> bytes:
+    out = bytearray()
+    out += struct.pack("<H", CODEC_KEY)
+    out += struct.pack("<H", 256 if c.del_char < 0 else c.del_char)
+    out += struct.pack("<H", 256 if c.sub_char < 0 else c.sub_char)
+    out += struct.pack("<i", len(c.prefix))
+    out += c.prefix
+    out += scheme_bytes(c.del_scheme)
+    if c.del_char >= 0:
+        out += scheme_bytes(c.drun_scheme)
+    out += scheme_bytes(c.ins_scheme)
+    out += scheme_bytes(c.mrg_scheme)
+    out += scheme_bytes(c.sub_scheme)
+    if c.sub_char >= 0:
+        out += scheme_bytes(c.srun_scheme)
+    return bytes(out)
+
+
+def assemble_dexqv(coding: QVCoding, wells, begs, ends, qvs,
+                   parts: list[tuple[np.ndarray, np.ndarray]]) -> bytes:
+    """Vectorized container assembly from per-entry payload parts.
+
+    ``parts`` is an ordered list of (flat u8 array, per-entry byte lengths)
+    — del words, packed tag, ins words, mrg words, sub words.  One ragged
+    scatter per part builds the image; no per-entry Python loop.
+    """
+    head = struct.pack("<H", CONTAINER_KEY) + qvcoding_bytes(coding)
+
+    wells = np.asarray(wells, np.int64)
+    n = len(wells)
+    deltas = np.diff(wells, prepend=0)
+    if (deltas < 0).any():
+        raise FormatError("well numbers must be non-decreasing")
+    n_ff = deltas // 255
+    final = (deltas - 255 * n_ff).astype(np.uint8)
+
+    part_lens = [np.asarray(l, np.int64) for _, l in parts]
+    hdr_lens = n_ff + 13
+    ent_lens = hdr_lens + sum(part_lens)
+    ent_off = np.zeros(n + 1, np.int64)
+    np.cumsum(ent_lens, out=ent_off[1:])
+    out = np.empty(int(ent_off[-1]), np.uint8)
+
+    total_ff = int(n_ff.sum())
+    if total_ff:
+        f_starts = np.zeros(n, np.int64)
+        np.cumsum(n_ff[:-1], out=f_starts[1:])
+        pos = (np.arange(total_ff, dtype=np.int64) - np.repeat(f_starts, n_ff)
+               + np.repeat(ent_off[:-1], n_ff))
+        out[pos] = 0xFF
+    out[ent_off[:-1] + n_ff] = final
+    fields = np.empty((n, 12), np.uint8)
+    fields[:, 0:4] = np.asarray(begs, "<i4").reshape(n, 1).view(np.uint8)
+    fields[:, 4:8] = np.asarray(ends, "<i4").reshape(n, 1).view(np.uint8)
+    fields[:, 8:12] = np.asarray(qvs, "<i4").reshape(n, 1).view(np.uint8)
+    fpos = (ent_off[:-1] + n_ff + 1)[:, None] + np.arange(12, dtype=np.int64)[None, :]
+    out[fpos] = fields
+
+    base = ent_off[:-1] + hdr_lens
+    copier = qv_encode_shim().dxt_ragged_copy      # one memcpy per entry
+    for k, (flat, lens) in enumerate(parts):
+        lens = part_lens[k]
+        total = int(lens.sum())
+        if total:
+            flat = np.ascontiguousarray(np.asarray(flat, np.uint8)[:total])
+            dst = np.ascontiguousarray(base)
+            lens_c = np.ascontiguousarray(lens)
+            copier(out.ctypes.data, dst.ctypes.data, flat.ctypes.data,
+                   lens_c.ctypes.data, n)
+        base = base + lens
+    return head + out.tobytes()

@@ -1,0 +1,390 @@
+// Hand-written Hopper kernels (sm_90a) of the .dexqv encode path.
+//
+//   dxt_encode_plain  K1, replaces dextractor_tpu/ops/emit_pallas.py::encode_plain_pallas
+//   dxt_encode_run    K2, replaces dextractor_tpu/ops/emit_pallas.py::encode_run_pallas
+//   dxt_pack_tags     K3, replaces dextractor_tpu/ops/emit_pallas.py::pack_tags_pallas
+//
+// What they compute is the JAX package's XLA formulation, not its Pallas
+// bodies: bitstream_jax.plain_emissions / run_emissions + pack_words (the
+// reference's 32-bit OCODE emitter, QV.c:386-506) and pipeline._pack_tags
+// (Pack_Tag + Number_Read + Compress_Read, QV.c:810-819).  The plain PyTorch
+// twins in ops/bitstream_torch.py and parallel/pipeline.py compute the same
+// functions; chip_smoke.py holds each kernel against its twin bit for bit.
+//
+// Bound on the H100: by bytes, device memory.  A symbol is one byte in; K1
+// writes at most 24 bits for it (usually 4-6), K2 at most 56 per literal,
+// K3 2 bits.  The work per symbol is one 256-entry LUT lookup, a few shifts
+// and a share of one block-wide scan per 1,024 symbols.  Measured on an
+// H100 80GB HBM3 (700 W) at 2,000-symbol rows with L2 flushed, they run
+// 5-16x longer than their bytes take at the card's copy bandwidth, so at
+// such rows the latency of the per-chunk barriers bounds them, not memory
+// (PERF.md, Findings).  Design: one thread block owns
+// one (channel, row) and walks it in chunks of kChunk symbols, four per
+// thread.  A block scan of the emission widths (carried across chunks) gives
+// every emission its bit offset; K2 first runs a max-scan of literal
+// positions to recover each literal's preceding run (bitstream_jax.py:126).
+// Emissions are ORed into a shared-memory window with shared atomics, and
+// each finished 32-bit word (byte for K3) goes to device memory exactly once,
+// coalesced.  Nothing is zero-filled: K1/K2 leave the words past a row's
+// ceil(t/32) unwritten (callers read rows up to that count), K3 writes its
+// whole row including the zero tail.  The TPU kernels' 8,192-column VMEM cap
+// does not apply: a row of any width streams through the same window.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kItems = 4;
+constexpr int kChunk = kThreads * kItems;
+constexpr int kWarps = kThreads / 32;
+
+struct SumOp {
+  __device__ __forceinline__ int operator()(int a, int b) const { return a + b; }
+};
+struct MaxOp {
+  __device__ __forceinline__ int operator()(int a, int b) const { return a > b ? a : b; }
+};
+
+// Block-wide exclusive scan: returns this thread's exclusive prefix of x and
+// stores the block aggregate in *total.  Every thread of the block must call.
+template <class Op>
+__device__ __forceinline__ int block_scan(int x, int identity, Op op, int* s_warp,
+                                          int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int inc = x;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc = op(inc, y);
+  }
+  if (lane == 31) s_warp[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kWarps ? s_warp[lane] : identity;
+#pragma unroll
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w = op(w, y);
+    }
+    if (lane < kWarps) s_warp[lane] = w;
+  }
+  __syncthreads();
+  int excl = __shfl_up_sync(0xffffffffu, inc, 1);
+  if (lane == 0) excl = identity;
+  if (warp > 0) excl = op(s_warp[warp - 1], excl);
+  *total = s_warp[kWarps - 1];
+  __syncthreads();  // s_warp is reused by the next scan
+  return excl;
+}
+
+struct Emission {
+  uint32_t v;  // value, right-aligned
+  int n;       // width in bits (<= 32)
+  int gran;    // width of its last granule: 8/16 after an escape, else n
+};
+
+// Packed LUT entry: bits << 6 | len << 1 | esc (bitstream_jax.scheme_luts).
+// An escape is code || 8-bit literal (Encode, QV.c:397-402).
+__device__ __forceinline__ Emission sym_emission(const int* lut, int sym) {
+  const int pk = lut[sym];
+  const uint32_t bits = static_cast<uint32_t>(pk) >> 6;
+  const int len = (pk >> 1) & 31;
+  if (pk & 1) return {(bits << 8) | static_cast<uint32_t>(sym), len + 8, 8};
+  return {bits, len, len};
+}
+
+// Run code of min(run, 255); an escape is code || (run & 0xFFFF)
+// (Encode_Run, QV.c:468-487).
+__device__ __forceinline__ Emission run_emission(const int* lut, int run) {
+  const int pk = lut[run < 255 ? run : 255];
+  const uint32_t bits = static_cast<uint32_t>(pk) >> 6;
+  const int len = (pk >> 1) & 31;
+  if (pk & 1) {
+    return {(bits << 16) | (static_cast<uint32_t>(run) & 0xFFFFu), len + 16, 16};
+  }
+  return {bits, len, len};
+}
+
+// OR an emission of n >= 1 bits into the MSB-first word window at bit offset
+// `bit`; it touches at most two words.
+__device__ __forceinline__ void put_bits(uint32_t* s, int bit, uint32_t v, int n) {
+  const int w = bit >> 5;
+  const int pn = (bit & 31) + n;
+  if (pn <= 32) {
+    atomicOr(&s[w], v << (32 - pn));
+  } else {
+    atomicOr(&s[w], v >> (pn - 32));
+    atomicOr(&s[w + 1], v << (64 - pn));
+  }
+}
+
+// The window s holds the row's bits [32 * (carry >> 5), end).  Write its
+// finished words to dst and move the unfinished one to s[0].
+__device__ __forceinline__ void flush_words(uint32_t* s, uint32_t* dst,
+                                            long long carry, long long end) {
+  __syncthreads();  // every OR into s is done
+  const long long base = carry >> 5;
+  const int full = static_cast<int>((end >> 5) - base);
+  for (int i = threadIdx.x; i < full; i += kThreads) dst[base + i] = s[i];
+  const uint32_t part = s[full];
+  __syncthreads();
+  for (int i = threadIdx.x; i <= full; i += kThreads) s[i] = i == 0 ? part : 0u;
+  __syncthreads();
+}
+
+__device__ __forceinline__ int clamp_len(int len, long long width) {
+  if (len < 0) return 0;
+  return len > width ? static_cast<int>(width) : len;
+}
+
+__global__ void __launch_bounds__(kThreads)
+encode_plain_kernel(const uint8_t* __restrict__ data, const int* __restrict__ lengths,
+                    const int* __restrict__ luts, uint32_t* __restrict__ words,
+                    int* __restrict__ t_out, int* __restrict__ lg_out, int n_rows,
+                    long long width, long long mp) {
+  constexpr int kStage = kChunk + 2;  // <= 32 bits per symbol, plus the carry word
+  __shared__ int s_lut[256];
+  __shared__ uint32_t s_stage[kStage];
+  __shared__ int s_warp[kWarps];
+
+  const int row = blockIdx.x;
+  const int ch = blockIdx.y;
+  const long long r = static_cast<long long>(ch) * n_rows + row;
+  const uint8_t* src = data + r * width;
+  uint32_t* dst = words + r * mp;
+  const int len = clamp_len(lengths[row], width);
+  for (int i = threadIdx.x; i < 256; i += kThreads) s_lut[i] = luts[ch * 256 + i];
+  for (int i = threadIdx.x; i < kStage; i += kThreads) s_stage[i] = 0u;
+  __syncthreads();
+
+  long long carry = 0;  // bits emitted by earlier chunks
+  for (int c0 = 0; c0 < len; c0 += kChunk) {
+    Emission e[kItems];
+    int tot = 0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int col = c0 + threadIdx.x * kItems + k;
+      e[k] = {0u, 0, 0};
+      if (col < len) {
+        e[k] = sym_emission(s_lut, src[col]);
+        if (col == len - 1) lg_out[r] = e[k].gran;
+      }
+      tot += e[k].n;
+    }
+    int total;
+    int bit = static_cast<int>(carry & 31) + block_scan(tot, 0, SumOp(), s_warp, &total);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (e[k].n) put_bits(s_stage, bit, e[k].v, e[k].n);
+      bit += e[k].n;
+    }
+    const long long end = carry + total;
+    flush_words(s_stage, dst, carry, end);
+    carry = end;
+  }
+  if (threadIdx.x == 0) {
+    if (carry & 31) dst[carry >> 5] = s_stage[0];
+    t_out[r] = static_cast<int>(carry);
+    if (len == 0) lg_out[r] = 0;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+encode_run_kernel(const uint8_t* __restrict__ data, const int* __restrict__ lengths,
+                  const int* __restrict__ sym_luts, const int* __restrict__ run_luts,
+                  const int* __restrict__ rchars, uint32_t* __restrict__ words,
+                  int* __restrict__ t_out, int* __restrict__ lg_out, int n_rows,
+                  long long width, long long mp) {
+  constexpr int kStage = 2 * kChunk + 2;  // <= 64 bits per literal, plus the carry word
+  __shared__ int s_slut[256];
+  __shared__ int s_rlut[256];
+  __shared__ uint32_t s_stage[kStage];
+  __shared__ int s_warp[kWarps];
+
+  const int row = blockIdx.x;
+  const int ch = blockIdx.y;
+  const long long r = static_cast<long long>(ch) * n_rows + row;
+  const uint8_t* src = data + r * width;
+  uint32_t* dst = words + r * mp;
+  const int len = clamp_len(lengths[row], width);
+  const int rchar = rchars[ch];
+  for (int i = threadIdx.x; i < 256; i += kThreads) {
+    s_slut[i] = sym_luts[ch * 256 + i];
+    s_rlut[i] = run_luts[ch * 256 + i];
+  }
+  for (int i = threadIdx.x; i < kStage; i += kThreads) s_stage[i] = 0u;
+  __syncthreads();
+
+  long long carry = 0;
+  int last_lit = -1;  // column of the last literal in earlier chunks
+  for (int c0 = 0; c0 < len; c0 += kChunk) {
+    int sym[kItems];
+    int mx = -1;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int col = c0 + threadIdx.x * kItems + k;
+      sym[k] = col < len ? src[col] : rchar;
+      if (col < len && sym[k] != rchar) mx = col;
+    }
+    int chunk_last;
+    int prev = block_scan(mx, -1, MaxOp(), s_warp, &chunk_last);
+    if (last_lit > prev) prev = last_lit;
+
+    Emission re[kItems], se[kItems];
+    int tot = 0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int col = c0 + threadIdx.x * kItems + k;
+      re[k] = {0u, 0, 0};
+      se[k] = {0u, 0, 0};
+      if (col < len && sym[k] != rchar) {  // one (run, literal) pair per literal
+        re[k] = run_emission(s_rlut, col - prev - 1);
+        se[k] = sym_emission(s_slut, sym[k]);
+        prev = col;
+      }
+      tot += re[k].n + se[k].n;
+    }
+    int total;
+    int bit = static_cast<int>(carry & 31) + block_scan(tot, 0, SumOp(), s_warp, &total);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (re[k].n) put_bits(s_stage, bit, re[k].v, re[k].n);
+      bit += re[k].n;
+      if (se[k].n) put_bits(s_stage, bit, se[k].v, se[k].n);
+      bit += se[k].n;
+    }
+    const long long end = carry + total;
+    flush_words(s_stage, dst, carry, end);
+    carry = end;
+    if (chunk_last > last_lit) last_lit = chunk_last;
+  }
+
+  if (threadIdx.x == 0) {
+    // the trailing run after the last literal, when it is not empty
+    const int trail = len - last_lit - 1;
+    long long t = carry;
+    int lg = 0;
+    if (trail > 0) {
+      const Emission te = run_emission(s_rlut, trail);
+      if (te.n) put_bits(s_stage, static_cast<int>(carry & 31), te.v, te.n);
+      t += te.n;
+      lg = te.gran;
+    } else if (last_lit >= 0) {
+      lg = sym_emission(s_slut, src[last_lit]).gran;
+    }
+    const long long base = carry >> 5;
+    for (long long w = base; w < ((t + 31) >> 5); ++w) dst[w] = s_stage[w - base];
+    t_out[r] = static_cast<int>(t);
+    lg_out[r] = lg;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+pack_tags_kernel(const uint8_t* __restrict__ tags, const uint8_t* __restrict__ dels,
+                 const int* __restrict__ lengths, const int* __restrict__ del_char_p,
+                 const uint8_t* __restrict__ number_lut, uint8_t* __restrict__ packed,
+                 int* __restrict__ clens, long long width, long long wbytes) {
+  constexpr int kStage = kChunk / 4 + 2;  // one slot per packed byte, plus the carry byte
+  __shared__ uint32_t s_lut[256];
+  __shared__ uint32_t s_stage[kStage];
+  __shared__ int s_warp[kWarps];
+
+  const long long row = blockIdx.x;
+  const uint8_t* tg = tags + row * width;
+  const uint8_t* dl = dels + row * width;
+  uint8_t* dst = packed + row * wbytes;
+  const int len = clamp_len(lengths[row], width);
+  const int del_char = *del_char_p;
+  for (int i = threadIdx.x; i < 256; i += kThreads) s_lut[i] = number_lut[i];
+  for (int i = threadIdx.x; i < kStage; i += kThreads) s_stage[i] = 0u;
+  __syncthreads();
+
+  long long carry = 0;  // tags kept by earlier chunks
+  for (int c0 = 0; c0 < len; c0 += kChunk) {
+    uint32_t code[kItems];
+    bool keep[kItems];
+    int cnt = 0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int col = c0 + threadIdx.x * kItems + k;
+      keep[k] = col < len && (del_char < 0 || dl[col] != del_char);
+      code[k] = keep[k] ? s_lut[tg[col]] : 0u;
+      cnt += keep[k];
+    }
+    int total;
+    // rank relative to the first code of byte carry >> 2
+    int rank = static_cast<int>(carry & 3) + block_scan(cnt, 0, SumOp(), s_warp, &total);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (keep[k]) {  // first code in bits 7-6 (DB.c:334)
+        atomicOr(&s_stage[rank >> 2], code[k] << (6 - 2 * (rank & 3)));
+        ++rank;
+      }
+    }
+    const long long end = carry + total;
+    __syncthreads();
+    const long long base = carry >> 2;
+    const int full = static_cast<int>((end >> 2) - base);
+    for (int i = threadIdx.x; i < full; i += kThreads) {
+      dst[base + i] = static_cast<uint8_t>(s_stage[i]);
+    }
+    const uint32_t part = s_stage[full];
+    __syncthreads();
+    for (int i = threadIdx.x; i <= full; i += kThreads) s_stage[i] = i == 0 ? part : 0u;
+    __syncthreads();
+    carry = end;
+  }
+  if (threadIdx.x == 0) {
+    if (carry & 3) dst[carry >> 2] = static_cast<uint8_t>(s_stage[0]);
+    clens[row] = static_cast<int>(carry);
+  }
+  for (long long b = ((carry + 3) >> 2) + threadIdx.x; b < wbytes; b += kThreads) dst[b] = 0;
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes (ops/_build.py).  Each launches on
+// the given stream, never synchronises, and returns cudaGetLastError().
+
+extern "C" int dxt_encode_plain(const void* data, const void* lengths, const void* luts,
+                                void* words, void* t, void* lg, int channels, int n_rows,
+                                long long width, long long mp, void* stream) {
+  if (channels <= 0 || n_rows <= 0) return 0;
+  const dim3 grid(static_cast<unsigned>(n_rows), static_cast<unsigned>(channels));
+  encode_plain_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(data), static_cast<const int*>(lengths),
+      static_cast<const int*>(luts), static_cast<uint32_t*>(words), static_cast<int*>(t),
+      static_cast<int*>(lg), n_rows, width, mp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dxt_encode_run(const void* data, const void* lengths, const void* sym_luts,
+                              const void* run_luts, const void* rchars, void* words, void* t,
+                              void* lg, int channels, int n_rows, long long width,
+                              long long mp, void* stream) {
+  if (channels <= 0 || n_rows <= 0) return 0;
+  const dim3 grid(static_cast<unsigned>(n_rows), static_cast<unsigned>(channels));
+  encode_run_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(data), static_cast<const int*>(lengths),
+      static_cast<const int*>(sym_luts), static_cast<const int*>(run_luts),
+      static_cast<const int*>(rchars), static_cast<uint32_t*>(words), static_cast<int*>(t),
+      static_cast<int*>(lg), n_rows, width, mp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dxt_pack_tags(const void* tags, const void* dels, const void* lengths,
+                             const void* del_char, const void* number_lut, void* packed,
+                             void* clens, int n_rows, long long width, long long wbytes,
+                             void* stream) {
+  if (n_rows <= 0) return 0;
+  pack_tags_kernel<<<static_cast<unsigned>(n_rows), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(tags), static_cast<const uint8_t*>(dels),
+      static_cast<const int*>(lengths), static_cast<const int*>(del_char),
+      static_cast<const uint8_t*>(number_lut), static_cast<uint8_t*>(packed),
+      static_cast<int*>(clens), width, wbytes);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,112 @@
+"""The port's .dexqv encode end to end against the JAX package, the CLI, and
+the port's independence from JAX."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import make_quiva as conftest_make_quiva
+from dextractor_tpu.codecs.qv_codec import encode_quiva_to_dexqv as jax_encode
+
+from dextractor_tpu_torch import testing
+from dextractor_tpu_torch.codecs import qv_codec as tq
+from dextractor_tpu_torch.utils import dispatch
+
+REPO = Path(__file__).resolve().parent.parent
+
+CORPORA = {
+    "default": dict(seed=1, n_reads=20, max_len=600),
+    "sub_heavy": dict(seed=3, n_reads=30, min_len=6700, max_len=7000, sub_heavy=True),
+    "empty_reads": dict(seed=4, lengths=[0, 5, 0, 0, 17, 0, 1]),
+    "long_read": dict(seed=5, lengths=[9000, 100, 12000]),
+    "no_del_run": dict(seed=6, n_reads=10, max_len=300, del_run=False),
+}
+
+
+@pytest.fixture(scope="module")
+def corpora():
+    out = {}
+    for name, kw in CORPORA.items():
+        kw = dict(kw)
+        out[name] = testing.make_quiva(np.random.default_rng(kw.pop("seed")), **kw)
+    return out
+
+
+@pytest.mark.parametrize("lossy", [False, True])
+@pytest.mark.parametrize("name", list(CORPORA))
+def test_encode_matches_reference(corpora, name, lossy):
+    data = corpora[name]
+    ref = jax_encode(data, lossy=lossy, device=False)
+    dispatch.reset_counts()
+    assert tq.encode_quiva_to_dexqv(data, lossy=lossy, device="cpu") == ref
+    assert dispatch.TWIN_CALLS["encode_plain"] > 0
+    assert tq.encode_quiva_to_dexqv(data, lossy=lossy, device=False) == ref
+
+
+def test_encode_matches_reference_device_path(corpora):
+    """Once, against the JAX package's own batched device path (XLA on the
+    CPU); the other tests hold the port to its native encoder."""
+    data = corpora["default"]
+    assert tq.encode_quiva_to_dexqv(data, device="cpu") == jax_encode(data, device=True)
+
+
+def test_device_request_without_cuda_raises(corpora, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        tq.encode_quiva_to_dexqv(corpora["default"], device=True)
+    monkeypatch.setenv("DXT_DEVICE", "1")
+    with pytest.raises(RuntimeError):
+        tq.encode_quiva_to_dexqv(corpora["default"])
+    monkeypatch.setenv("DXT_DEVICE", "0")
+    assert dispatch.resolve_device(None) is None
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    return env
+
+
+def test_cli_dexqv(corpora, tmp_path):
+    src = tmp_path / "g.quiva"
+    src.write_bytes(corpora["default"])
+    r = subprocess.run([sys.executable, "-m", "dextractor_tpu_torch", "dexqv", "-k",
+                        str(src)], capture_output=True, text=True, env=_env(),
+                       cwd=tmp_path, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert src.exists()
+    assert (tmp_path / "g.dexqv").read_bytes() == jax_encode(corpora["default"],
+                                                             device=False)
+
+
+def test_port_imports_no_jax(tmp_path):
+    code = (
+        "import sys, numpy as np\n"
+        "from dextractor_tpu_torch.cli import main\n"
+        "from dextractor_tpu_torch.codecs.qv_codec import encode_quiva_to_dexqv\n"
+        "from dextractor_tpu_torch.testing import make_quiva\n"
+        "import chip_smoke\n"
+        "d = make_quiva(np.random.default_rng(0), n_reads=6)\n"
+        "assert encode_quiva_to_dexqv(d, device='cpu') == "
+        "encode_quiva_to_dexqv(d, device=False)\n"
+        f"open({str(tmp_path / 'a.quiva')!r}, 'wb').write(d)\n"
+        f"assert main(['dexqv', '-vk', {str(tmp_path / 'a.quiva')!r}]) == 0\n"
+        "print('jax' in sys.modules)\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       env=_env(), cwd=REPO, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "False"
+    assert "encode+assemble" in r.stderr          # the -v stage table
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(sub_heavy=True, del_run=False),
+                                dict(lengths=[3, 0, 700], spread=10)])
+def test_make_quiva_matches_conftest(kw):
+    a = testing.make_quiva(np.random.default_rng(9), **kw)
+    b = conftest_make_quiva(np.random.default_rng(9), **kw)
+    assert a == b
