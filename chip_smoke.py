@@ -1,29 +1,46 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port on one GPU: the .dexqv encode path.
+"""Smoke test of the PyTorch/CUDA port on one GPU: the .dexqv encode and
+decode paths.
 
 Run from the repository root on a machine with an sm_90 card:
 
     python3 chip_smoke.py
 
-Phases, each printing one line (or a few) before the final JSON line:
+Phases, each printing one line (or a few) before the final JSON lines:
 
 1. environment: the card's name and power limit (nvidia-smi), the torch,
-   CUDA and nvcc versions; the card must have compute capability (9, 0);
-2. build: compile ops/csrc/*.cu with nvcc for sm_90a, timed;
-3. kernels: K1 (encode_plain), K2 (encode_run) and K3 (pack_tags) on the
-   card against their plain PyTorch twins, bit for bit, at the shapes of the
-   16 MB uniform batch and on rows of up to 70,000 symbols with runs over
-   255 and over 65,535; the time of kernel and twin per call, both as
-   stream time (CUDA events) and as device time (torch.profiler);
-4. slice: encode_quiva_to_dexqv(device=True) on four corpora (the uniform
-   batch, a sub-heavy corpus, the same lossy, the log-normal long-read
-   batch), each byte for byte against the native C encoder
-   (device=False); every kernel must have been launched in this phase and
-   no twin called;
-5. step: median stream time of qv_encode_step on the uniform batch, and
-   the share of it the card was busy.
+   CUDA and nvcc versions, the card's copy bandwidth (1 GiB ``copy_``); the
+   card must have compute capability (9, 0);
+2. build: compile ops/csrc/*.cu with nvcc for sm_90a, one compiler per
+   source, all at once, timed;
+3. encode kernels: K1 (encode_plain), K2 (encode_run) and K3 (pack_tags) on
+   the card against their plain PyTorch twins, bit for bit, at the shapes of
+   the 16 MB uniform batch and on rows of up to 70,000 symbols;
+4. encode slice: encode_quiva_to_dexqv(device=True) on four corpora (the
+   uniform batch, a sub-heavy corpus, the same lossy, the log-normal
+   long-read batch), each byte for byte against the native C encoder
+   (device=False); every encode kernel launched in this phase, no twin;
+5. encode step: median stream time of qv_encode_step on the uniform batch,
+   and the share of it the card was busy;
+6. decode kernels: K4 (decode_plain: ins, mrg, sub in one launch, and one
+   channel), K5 (decode_run) on delQV and K6 (expand_runs) with the delTag
+   codes on delQV at the uniform batch's decode shapes, K5 and K6 on subQV
+   of the sub-heavy corpus, and the edge rows of
+   testing.decode_edge_cases, each against its twin bit for bit;
+7. decode slice: decode_dexqv_to_quiva(device=True) on the four encoded
+   corpora against the original .quiva and the native walker
+   (device=False); every decode kernel launched in this phase, no twin;
+8. decode step: median stream time and busy share of decode_entry_batch2
+   on the uniform batch as one rectangle; then the device time of each
+   decode kernel over one decode of the long-read batch.
 
-It prints the kernels as one JSON line and, last,
+Each kernel is timed, at the main path's shapes, as device time per call
+from a torch.profiler trace (``ms``, with L2 flushed before each launch, as
+the main path finds it; ``warm_ms`` with the inputs left in L2 by the
+launch before), stream time from CUDA events (``event_ms``, warm), and
+beside its twin's device time (``plain_ms``); ``bound_ms`` is the bytes the
+function must move over the card's published memory rate.  It prints the
+kernels as one JSON line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises, so the exit code is non-zero and no result is printed.
 It exits 1 at once when torch.cuda.is_available() is False.
@@ -42,20 +59,35 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-KERNELS = {   # wrapper name -> the TPU kernel it replaces
-    "encode_plain": "dextractor_tpu/ops/emit_pallas.py:623",
-    "encode_run": "dextractor_tpu/ops/emit_pallas.py:662",
-    "pack_tags": "dextractor_tpu/ops/emit_pallas.py:551",
+EMIT = "dextractor_tpu_torch/ops/csrc/emit.cu"
+DECODE = "dextractor_tpu_torch/ops/csrc/decode.cu"
+KERNELS = {   # wrapper name -> (source, the TPU kernel it replaces)
+    "encode_plain": (EMIT, "dextractor_tpu/ops/emit_pallas.py:623"),
+    "encode_run": (EMIT, "dextractor_tpu/ops/emit_pallas.py:662"),
+    "pack_tags": (EMIT, "dextractor_tpu/ops/emit_pallas.py:551"),
+    "decode_plain": (DECODE, "dextractor_tpu/ops/decode_conveyor.py:612 (K4a), "
+                             "dextractor_tpu/ops/decode_conveyor.py:986 (K4b)"),
+    "decode_run": (DECODE, "dextractor_tpu/ops/decode_conveyor.py:1059"),
+    "expand_runs": (DECODE, "dextractor_tpu/ops/expand_pallas.py:53"),
 }
-SOURCE = "dextractor_tpu_torch/ops/csrc/emit.cu"
+ENCODE_KERNELS = ("encode_plain", "encode_run", "pack_tags")
+DECODE_KERNELS = ("decode_plain", "decode_run", "expand_runs")
+PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, published (NVIDIA data sheet)
+COPY_BW = {}                 # the card's measured copy bandwidth, phase 1
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def on_card(device) -> bool:
+    import torch
+
+    return torch.device(device).type == "cuda"
+
+
 def cuda_ms(fn, reps: int = 20, rounds: int = 5, warmup: int = 3) -> float:
-    """Median over ``rounds`` of the device time per call of fn(), in ms,
+    """Median over ``rounds`` of the stream time per call of fn(), in ms,
     from CUDA events around ``reps`` back-to-back calls."""
     import torch
 
@@ -75,25 +107,37 @@ def cuda_ms(fn, reps: int = 20, rounds: int = 5, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20):
+def device_ms(fn, reps: int = 20, match: str | None = None, warm: bool = True):
     """Device time per call of fn() in ms: the summed durations of the
-    kernels and copies it ran on the card, from a torch.profiler (CUPTI)
-    trace of ``reps`` calls, and the number of device operations per call.
-    Unlike cuda_ms it excludes the gaps in which the card waited for the
-    host to enqueue work.  None when the trace holds no device activity."""
+    kernels and copies it ran on the card (only those whose name contains
+    ``match``, when given), from a torch.profiler (CUPTI) trace of ``reps``
+    calls, and the number of those device operations per call.  Unlike
+    cuda_ms it excludes the gaps in which the card waited for the host.
+
+    A trace of a twin's call holds up to ~215,000 device operations, near
+    what the profiler's activity buffers take; a trace that comes back with
+    no device activity at all is taken once more, and said so.  None when
+    the second trace holds no such activity either."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not ev:
-        return None, 0
-    return sum(e.time_range.elapsed_us() for e in ev) / reps / 1000, len(ev) / reps
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        ev = [e for e in dev if match is None or match in e.name]
+        if ev:
+            return sum(e.time_range.elapsed_us() for e in ev) / reps / 1000, len(ev) / reps
+        if dev or attempt:
+            return None, 0
+        log(f"[profiler] a trace of {reps} call(s) came back with no device "
+            "activity; tracing again")
 
 
 def phase_environment():
@@ -114,6 +158,13 @@ def phase_environment():
         f"devices {torch.cuda.device_count()}")
     if cap != (9, 0):
         raise RuntimeError(f"compute capability {cap}, the kernels need (9, 0)")
+    a = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    b = torch.empty_like(a)
+    ms = cuda_ms(lambda: b.copy_(a), reps=10, rounds=3, warmup=2)
+    COPY_BW["bytes_per_s"] = 2 * a.numel() / (ms / 1e3)
+    del a, b
+    log(f"[env] copy bandwidth {COPY_BW['bytes_per_s'] / 1e12} TB/s "
+        f"(1 GiB copy_, read + write, {ms} ms)")
 
 
 def phase_build():
@@ -125,7 +176,7 @@ def phase_build():
     for line in out.splitlines():
         if "Used" in line or "Compiling entry" in line:
             log(f"[ptxas] {line.strip()}")
-    log(f"[build] nvcc sm_90a {seconds:.2f} s")
+    log(f"[build] nvcc sm_90a, {len(_build.sources())} sources at once, {seconds:.2f} s")
 
 
 def _masked(x, lim):
@@ -166,49 +217,96 @@ def _check_tags(got, ref):
     return err
 
 
-def wide_rows(rchar: int, seed: int = 11):
-    """Rows of up to 70,000 symbols: one all-rchar row (a trailing run over
-    65,535), sparse literals (runs over 255), a run of 66,000 before a
-    literal, dense random rows, an empty row and a one-symbol row."""
+def _check_same(name, got, ref):
+    """Every output of kernel and twin equal: shapes, dtypes, values."""
+    got = [g for g in got if g is not None]
+    ref = [r for r in ref if r is not None]
+    if len(got) != len(ref) or any(g.shape != r.shape or g.dtype != r.dtype
+                                   for g, r in zip(got, ref)):
+        raise AssertionError(f"{name}: kernel and twin outputs differ in shape or type")
+    err = _max_err(list(zip(got, ref)))
+    if err:
+        raise AssertionError(f"{name}: kernel disagrees with its twin (max abs err {err})")
+    return err
+
+
+def _words_out(t):
+    """Bytes of the words up to ceil(t/32) of every row: what an encode
+    writes, or a decode chain of t bits reads."""
+    return 4 * int(((t.long() + 31) >> 5).sum())
+
+
+def measure(name, kern, twin, nbytes, slow_twin=False, library=None, label=None):
+    """Times of kernel ``kern`` and twin ``twin`` (argument-free calls) on
+    the card; ``nbytes`` the bytes the function must move."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    match = f"{name}_kernel"
+    event_ms = cuda_ms(kern)
+    warm_ms, _ = device_ms(kern, match=match)
+    ms, _ = device_ms(lambda: (flush.zero_(), kern()), match=match)
+    if slow_twin:
+        plain_event_ms = cuda_ms(twin, reps=1, rounds=1, warmup=0)
+        plain_ms, n_ops = device_ms(twin, reps=1, warm=False)
+    else:
+        plain_event_ms = cuda_ms(twin, reps=3, warmup=1)
+        plain_ms, n_ops = device_ms(twin, reps=3)
+    library_ms = device_ms(library)[0] if library else None
+    empty = [k for k, v in (("ms", ms), ("warm_ms", warm_ms), ("plain_ms", plain_ms),
+                            ("library_ms", library_ms if library else 0)) if v is None]
+    if empty:
+        raise RuntimeError(f"{name}: the profiler recorded no device time for {empty}")
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_copy_ms = nbytes / COPY_BW["bytes_per_s"] * 1e3
+    log(f"[kernel] {label or name}: device time (profiler) kernel {ms} ms L2 flushed, "
+        f"{warm_ms} ms warm; twin {plain_ms} ms in {n_ops} device ops; stream time "
+        f"(CUDA events) kernel {event_ms} ms, twin {plain_event_ms} ms; "
+        f"{nbytes} bytes: bound {bound_ms} ms at {PEAK_BYTES_PER_S / 1e12} TB/s, "
+        f"{bound_copy_ms} ms at the copy bandwidth"
+        + (f"; library call {library_ms} ms" if library else ""))
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms, "event_ms": event_ms,
+            "plain_event_ms": plain_event_ms, "warm_ms": warm_ms, "bytes": nbytes,
+            "bound_copy_ms": bound_copy_ms}
+
+
+def wide_rows(rchar: int, l: int = 70_000, seed: int = 11):
+    """Rows of up to ``l`` symbols (at the default: one all-rchar row, a
+    trailing run over 65,535), sparse literals (runs over 255), a run of
+    66,000 before a literal, dense random rows, an empty row and a
+    one-symbol row."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    n, l = 8, 70_000
+    n = 8
     d = np.full((n, l), rchar, np.uint8)
     d[1, ::300] = 40
     d[2] = rng.integers(33, 63, l)
-    d[3, 66_000] = 41
+    d[3, min(66_000, l - 1)] = 41
     d[4] = np.where(rng.random(l) < 0.3, rng.integers(33, 63, l), rchar)
     d[5] = rng.integers(0, 256, l)
     d[7] = np.where(rng.random(l) < 0.01, rng.integers(33, 63, l), rchar)
-    lengths = np.array([70_000, 70_000, 60_000, 70_000, 70_000, 12_345, 1, 0],
-                       np.int32)
+    lengths = np.array([l, l, l * 6 // 7, l, l, min(12_345, l), 1, 0], np.int32)
     tags = rng.choice(np.frombuffer(b"acgtn", np.uint8), size=(n, l))
     return d, lengths, tags
 
 
 def concentrated_luts():
     """A skewed scheme with escapes (type 2) as a packed LUT."""
-    import numpy as np
     from dextractor_tpu_torch.ops import bitstream_torch as bt
-    from dextractor_tpu_torch.ops.huffman import make_scheme
+    from dextractor_tpu_torch.testing import edge_schemes
 
-    # geometric counts give a Huffman tree deeper than 16: type 2
-    hist = np.ones(256, np.int64)
-    hist[:40] += (1.6 ** np.arange(40)).astype(np.int64)
-    scheme = make_scheme(hist)
+    scheme = edge_schemes()["type2"][0]
     if scheme.type != 2:
         raise AssertionError("the concentrated scheme has no escapes")
     return bt.scheme_luts(scheme)
 
 
-def phase_kernels(uniform: bytes):
-    """K1-K3 against their twins on the card; returns per-kernel
-    {max_abs_err, ms, plain_ms, event_ms, plain_event_ms} at the uniform
-    batch's step shapes: ``ms``/``plain_ms`` are device time per call from
-    the profiler (it raises when the profiler records none),
-    ``event_ms``/``plain_event_ms`` stream time from CUDA events."""
-    import numpy as np
+def phase_encode_kernels(device, uniform: bytes, wide_len: int = 70_000):
+    """K1-K3 against their twins on ``device``, at the uniform batch's
+    shapes and on ``wide_rows(wide_len)``; on the card also their times
+    (see ``measure``).  Returns {kernel: {max_abs_err, times...}}."""
     import torch
     from dextractor_tpu_torch.ops import bitstream_torch as bt
     from dextractor_tpu_torch.ops import emit
@@ -216,7 +314,7 @@ def phase_kernels(uniform: bytes):
     from dextractor_tpu_torch.testing import step_batch
 
     (streams, lengths, sym, run, rchars, nlut), run_on = step_batch(uniform)
-    dev = torch.device("cuda")
+    dev = torch.device(device)
     s = torch.from_numpy(streams).to(dev)
     ln = torch.from_numpy(lengths).to(dev)
     sym_d = torch.from_numpy(sym).to(dev)
@@ -234,31 +332,31 @@ def phase_kernels(uniform: bytes):
             sym_d[run_cs].contiguous(), run_d[run_cs].contiguous(),
             rch[run_cs].contiguous())
     t_in = (s[1], s[0], ln, rch[0:1].contiguous(), nl)
-    cases = {
-        "encode_plain": (emit.encode_plain, bt.encode_plain_ref, p_in, _check_words),
-        "encode_run": (emit.encode_run, bt.encode_run_ref, r_in, _check_words),
+    n_sym = int(lengths.sum())
+    n = len(lengths)
+    cases = {   # kernel, twin, inputs, check, bytes moved (inputs, outputs)
+        "encode_plain": (emit.encode_plain, bt.encode_plain_ref, p_in, _check_words,
+                         lambda out: len(plain_cs) * (n_sym + 1024 + 8 * n) + 4 * n
+                         + _words_out(out[1])),
+        "encode_run": (emit.encode_run, bt.encode_run_ref, r_in, _check_words,
+                       lambda out: len(run_cs) * (n_sym + 2052 + 8 * n) + 4 * n
+                       + _words_out(out[1])),
         "pack_tags": (emit.pack_tags, _pack_tags, t_in,
-                      lambda _n, g, r: _check_tags(g, r)),
+                      lambda _n, g, r: _check_tags(g, r),
+                      lambda out: 2 * n_sym + 8 * n + 260 + out[0].numel()),
     }
     res = {}
     shape = tuple(streams.shape)
-    for name, (kern, twin, args, check) in cases.items():
-        err = check(name, kern(*args), twin(*args))
-        torch.cuda.synchronize()
-        event_ms = cuda_ms(lambda: kern(*args))
-        plain_event_ms = cuda_ms(lambda: twin(*args), reps=3, warmup=1)
-        ms, _ = device_ms(lambda: kern(*args))
-        plain_ms, n_ops = device_ms(lambda: twin(*args), reps=3)
-        if ms is None or plain_ms is None:
-            raise RuntimeError(f"{name}: the profiler recorded no device time")
-        log(f"[kernel] {name}: device time (profiler) kernel {ms} ms, twin "
-            f"{plain_ms} ms in {n_ops} device ops; stream time (CUDA events) "
-            f"kernel {event_ms} ms, twin {plain_event_ms} ms")
-        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "event_ms": event_ms, "plain_event_ms": plain_event_ms}
+    for name, (kern, twin, args, check, nbytes) in cases.items():
+        out = kern(*args)
+        err = check(name, out, twin(*args))
+        res[name] = {"max_abs_err": err}
+        if on_card(dev):
+            res[name].update(measure(name, lambda: kern(*args), lambda: twin(*args),
+                                     nbytes(out)))
         log(f"[kernel] {name} streams {shape} bit-identical to twin")
 
-    d, wl, tags = wide_rows(int(rchars[0]) if rchars[0] >= 0 else 102)
+    d, wl, tags = wide_rows(int(rchars[0]) if rchars[0] >= 0 else 102, wide_len)
     dd = torch.from_numpy(d).to(dev)
     wld = torch.from_numpy(wl).to(dev)
     conc = torch.from_numpy(concentrated_luts()).to(dev)[None]
@@ -268,11 +366,12 @@ def phase_kernels(uniform: bytes):
     t_w = (torch.from_numpy(tags).to(dev), dd, wld, rch[0:1].contiguous(), nl)
     for name, args in (("encode_plain", p_w), ("encode_run", r_w),
                        ("pack_tags", t_w)):
-        kern, twin, _, check = cases[name]
+        kern, twin, _, check, _ = cases[name]
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
                                        check(name, kern(*args), twin(*args)))
-    log(f"[kernel] wide rows {tuple(d.shape)} (runs > 255 and > 65,535, "
-        "type-2 escapes): K1, K2, K3 bit-identical to their twins")
+    runs = "runs > 255 and > 65,535" if wide_len > 65_535 else "runs > 255"
+    log(f"[kernel] wide rows {tuple(d.shape)} ({runs}, type-2 escapes): K1, K2, K3 "
+        "bit-identical to their twins")
     return res
 
 
@@ -286,15 +385,29 @@ def corpora(uniform: bytes):
             ("sub_heavy_lossy", sub_heavy, True), ("long_reads", long_quiva(), False)]
 
 
-def phase_slice(device, cases):
-    """The codec end to end on ``device`` against the native C encoder;
-    returns the kernel launch counts of this phase."""
+def _stage_line():
+    from dextractor_tpu_torch.utils.profiling import REPORTER
+
+    return ", ".join(f"{st.name} {st.seconds:.4f}" for st in REPORTER.stages.values())
+
+
+def _counts():
+    from dextractor_tpu_torch.utils import dispatch
+
+    return dict(dispatch.LAUNCHES), dict(dispatch.TWIN_CALLS)
+
+
+def phase_encode_slice(device, cases):
+    """The encode path end to end on ``device`` against the native C
+    encoder.  Returns (launch counts, twin calls, [(name, quiva, lossy,
+    dexqv)])."""
     from dextractor_tpu_torch.codecs.qv_codec import (create_qvcoding,
                                                       encode_quiva_to_dexqv, qv,
                                                       scan_quiva)
     from dextractor_tpu_torch.utils import dispatch
     from dextractor_tpu_torch.utils.profiling import REPORTER
 
+    encoded = []
     dispatch.reset_counts()
     for name, data, lossy in cases:
         q = qv.parse_quiva(data)
@@ -308,23 +421,21 @@ def phase_slice(device, cases):
         got = encode_quiva_to_dexqv(data, lossy=lossy, device=device)
         t1 = time.perf_counter()
         REPORTER.enabled = False
-        stages = ", ".join(f"{st.name} {st.seconds:.4f}"
-                           for st in REPORTER.stages.values())
         ref = encode_quiva_to_dexqv(data, lossy=lossy, device=False)
         t2 = time.perf_counter()
         if got != ref:
             raise AssertionError(f"{name}: device bytes differ from the native encoder")
-        log(f"[slice] {name}: {q.n_entries} reads, {int(q.lengths.sum())} "
+        encoded.append((name, data, lossy, got))
+        log(f"[encode] {name}: {q.n_entries} reads, {int(q.lengths.sum())} "
             f"symbols/channel, max read {int(q.lengths.max())}, "
             f"{len(got)} bytes identical to native; device {t1 - t0:.3f} s, "
-            f"native {t2 - t1:.3f} s (host clock); device stages (s): {stages}")
-    launches = dict(dispatch.LAUNCHES)
-    twins = dict(dispatch.TWIN_CALLS)
-    log(f"[slice] launches {launches} twin calls {twins}")
-    return launches, twins
+            f"native {t2 - t1:.3f} s (host clock); device stages (s): {_stage_line()}")
+    launches, twins = _counts()
+    log(f"[encode] launches {launches} twin calls {twins}")
+    return launches, twins, encoded
 
 
-def phase_step(device, uniform: bytes):
+def phase_encode_step(device, uniform: bytes):
     import torch
     from dextractor_tpu_torch.parallel.pipeline import qv_encode_step
     from dextractor_tpu_torch.testing import step_batch
@@ -333,16 +444,244 @@ def phase_step(device, uniform: bytes):
     dargs = [torch.from_numpy(a).to(device) for a in args]
     payload = 5 * int(args[1].sum())
     out = qv_encode_step(*dargs, run_on=run_on)
-    if out[0].device.type != "cuda":
-        raise AssertionError("the step did not run on the card")
+    if out[0].device.type != torch.device(device).type or out[0].shape[:2] != (4, len(args[1])):
+        raise AssertionError("the encode step did not run where its inputs lie")
+    if not on_card(device):
+        return
     ms = cuda_ms(lambda: qv_encode_step(*dargs, run_on=run_on))
     busy, n_ops = device_ms(lambda: qv_encode_step(*dargs, run_on=run_on))
     share = "not measured" if busy is None else f"{busy / ms:.3f}"
-    log(f"[step] qv_encode_step streams {tuple(args[0].shape)} run_on {run_on}: "
+    log(f"[encode step] qv_encode_step streams {tuple(args[0].shape)} run_on {run_on}: "
         f"{ms} ms median (CUDA events), {payload / ms / 1e6} GB/s of "
         f"{payload} payload bytes; device busy {busy} ms in {n_ops} device "
         f"ops (profiler), busy share {share}")
-    return ms
+
+
+def _repeat_interleave(runs, lits, rchar: int):
+    """One torch.repeat_interleave computing K6's rows as a flat stream:
+    the (rchar, literal) pairs of every token repeated (run, 1) times."""
+    import torch
+
+    vals = torch.stack([torch.full_like(lits, rchar & 0xFF), lits], 2).reshape(-1)
+    counts = torch.stack([runs, (lits >= 0).to(torch.int32)], 2).reshape(-1)
+    total = int(counts.sum())
+    return lambda: torch.repeat_interleave(vals, counts, output_size=total)
+
+
+def _expand_bytes(runs, lits, out):
+    """Bytes K6 must move for tokens (runs, lits) and its outputs ``out``:
+    each row's tokens up to its last live one (a nonzero run or a literal),
+    with the tag codes one code of 2 bits per literal, and every output
+    column written once."""
+    import torch
+
+    col = torch.arange(1, runs.shape[1] + 1, device=runs.device)
+    n_tok = torch.where((runs > 0) | (lits >= 0), col, 0).amax(1)
+    nbytes = 8 * int(n_tok.sum()) + out[0].numel()
+    if out[1] is not None:
+        nbytes += int(((lits >= 0).sum(1) + 3).div(4, rounding_mode="floor").sum())
+        nbytes += out[1].numel()
+    return nbytes
+
+
+def phase_decode_kernels(device, encoded, long_len: int = 70_000, row_len: int = 2500):
+    """K4-K6 against their twins on ``device`` at the uniform batch's decode
+    shapes, K5/K6 on the sub-heavy corpus's subQV, and the edge rows of
+    ``decode_edge_cases(long_len, row_len)``; on the card also their times at
+    the uniform shapes.  ``encoded`` is phase_encode_slice's list.  Returns
+    {kernel: {max_abs_err, times...}}."""
+    import numpy as np
+    import torch
+    from dextractor_tpu_torch.ops import decode2 as d2
+    from dextractor_tpu_torch.ops import decode_chains as dch
+    from dextractor_tpu_torch.ops import expand
+    from dextractor_tpu_torch.testing import (batch_to, check_decode_case,
+                                              decode_batch, decode_edge_cases)
+
+    dev = torch.device(device)
+    by_name = {name: enc for name, _, _, enc in encoded}
+    twins = {"decode_plain": d2.plain_chains, "decode_run": d2.run_chain,
+             "expand_runs": expand.expand_runs_ref}
+    wrappers = {"decode_plain": dch.decode_plain, "decode_run": dch.decode_run,
+                "expand_runs": expand.expand_runs}
+    errs = dict.fromkeys(DECODE_KERNELS, 0)
+    res = {}
+
+    def run(name, args, kw, label, nbytes=None, library=None, key=None):
+        """Check wrapper ``name`` against its twin; with ``nbytes``, time it
+        on the card into res[key or name]."""
+        out = wrappers[name](*args, **kw)
+        errs[name] = max(errs[name], _check_same(f"{name} ({label})", out,
+                                                 twins[name](*args, **kw)))
+        log(f"[kernel] {name} ({label}) bit-identical to twin")
+        if nbytes is not None and on_card(dev):
+            res[key or name] = measure(name, lambda: wrappers[name](*args, **kw),
+                                       lambda: twins[name](*args, **kw), nbytes(out),
+                                       slow_twin=True, library=library, label=key)
+        return out
+
+    args, kw = decode_batch(by_name["uniform"])
+    if (kw["del_mode"], kw["sub_mode"]) != ("run", "plain"):
+        raise AssertionError("the uniform batch decodes delQV as runs, subQV plain")
+    rd, tg, ri, rm, rs, rl, sids, f1, f2, types, dc, sc = batch_to(args, dev)
+    sig, sw = d2.channel_params(sids, types, kw["subw"], kw["chan_l2"])
+    n, max_len, lmax = rl.shape[0], kw["max_len"], kw["lmax"]
+    l2_bytes = 4 * f2.numel() if max(sw) else 0
+    shape = f"{n} rows, max_len {max_len}, lmax {lmax}"
+
+    def plain_bytes(out):
+        c = out[1].shape[0]
+        return (_words_out(out[1]) + 4 * n + c * 1024 + l2_bytes + out[0].numel()
+                + 8 * out[1].numel())
+
+    plain = [2, 3, 4]
+    run("decode_plain",
+        ([ri, rm, rs], rl, torch.stack([f1[sids[k]] for k in plain]), f2,
+         [sig[k] for k in plain], [sw[k] for k in plain]),
+        dict(max_len=max_len, lmax=lmax), f"ins, mrg, sub in one launch, {shape}",
+        plain_bytes)
+    run("decode_plain", ([ri], rl, f1[sids[2]][None], f2, [sig[2]], [sw[2]]),
+        dict(max_len=max_len, lmax=lmax), f"ins alone, {shape}", plain_bytes,
+        key="decode_plain (C = 1)")
+    dkw = dict(max_tokens=kw["max_tokens"], subw=max(sw[0], sw[1]), lmax=lmax)
+    runs, lits, _, _ = run(
+        "decode_run", (rd, rl, f1[sids[1]], f1[sids[0]], f2, sig[0]), dkw,
+        f"delQV, {shape}, max_tokens {kw['max_tokens']}",
+        lambda out: _words_out(out[2]) + 4 * n + 2048 + l2_bytes
+        + 4 * (out[0].numel() + out[1].numel() + 2 * n))
+    run("expand_runs", (runs, lits, dc), dict(max_len=max_len, tag_bytes=tg),
+        f"delQV with the delTag codes, {shape}", lambda out: _expand_bytes(runs, lits, out),
+        library=_repeat_interleave(runs, lits, dc))
+
+    args, kw = decode_batch(by_name["sub_heavy"])
+    if kw["sub_mode"] != "run":
+        raise AssertionError("the sub-heavy corpus decodes subQV as runs")
+    rd, tg, ri, rm, rs, rl, sids, f1, f2, types, dc, sc = batch_to(args, dev)
+    sig, sw = d2.channel_params(sids, types, kw["subw"], kw["chan_l2"])
+    runs, lits, _, _ = run(
+        "decode_run", (rs, rl, f1[sids[5]], f1[sids[4]], f2, sig[4]),
+        dict(max_tokens=kw["max_tokens"], subw=max(sw[4], sw[5]), lmax=kw["lmax"]),
+        f"subQV of the sub-heavy corpus, {rl.shape[0]} rows")
+    run("expand_runs", (runs, lits, sc), dict(max_len=kw["max_len"]),
+        "subQV of the sub-heavy corpus")
+
+    rng = np.random.default_rng(3)
+    l2_lens = []           # L2 entries of each edge case whose chains read L2
+    for label, name, a, k, expect in decode_edge_cases(dev, long_len, row_len):
+        reads_l2 = max(a[5]) if name == "decode_plain" else k["subw"]
+        if reads_l2:
+            l2_lens.append(a[3 if name == "decode_plain" else 4].numel())
+        out = run(name, a, k, f"edge: {label}")
+        check_decode_case(label, out, expect)
+        if name == "decode_run":           # K6 on the same tokens, with tags
+            tb = torch.from_numpy(rng.integers(0, 256, (out[0].shape[0], 64),
+                                               dtype=np.uint8)).to(dev)
+            width = expect["rows"].shape[1]
+            run("expand_runs", (out[0], out[1], expect["rchar"]),
+                dict(max_len=width, tag_bytes=tb), f"edge: {label}, with tag codes")
+    # the chain kernels stage L2 in shared memory up to SMEM_L2_MAX entries
+    # and read it from global memory past that: the edge rows take both
+    if not (min(l2_lens) <= dch.SMEM_L2_MAX < max(l2_lens)):
+        raise AssertionError(f"edge rows with L2 tables of {sorted(l2_lens)} entries do "
+                             f"not take both sides of {dch.SMEM_L2_MAX}")
+    log(f"[kernel] decode edge rows ({long_len}-symbol rows, L2 tables of "
+        f"{sorted(set(l2_lens))} entries): K4, K5, K6 bit-identical to their twins "
+        "and to the encoded data")
+    for name in DECODE_KERNELS:
+        res.setdefault(name, {})["max_abs_err"] = errs[name]
+    return res
+
+
+def phase_decode_slice(device, encoded):
+    """decode_dexqv_to_quiva on ``device`` against the original .quiva and
+    the native walker.  Returns (launch counts, twin calls)."""
+    from dextractor_tpu_torch.codecs.qv_codec import decode_dexqv_to_quiva
+    from dextractor_tpu_torch.testing import lossy_quiva
+    from dextractor_tpu_torch.utils import dispatch
+    from dextractor_tpu_torch.utils.profiling import REPORTER
+
+    dispatch.reset_counts()
+    for name, data, lossy, enc in encoded:
+        REPORTER.stages.clear()
+        REPORTER.enabled = True
+        t0 = time.perf_counter()
+        got = decode_dexqv_to_quiva(enc, device=device)
+        t1 = time.perf_counter()
+        REPORTER.enabled = False
+        ref = decode_dexqv_to_quiva(enc, device=False)
+        t2 = time.perf_counter()
+        want = lossy_quiva(data) if lossy else data
+        if got != ref or got != want:
+            raise AssertionError(f"{name}: decoded bytes differ from the "
+                                 f"{'native walker' if got != ref else 'original'}")
+        log(f"[decode] {name}: {len(enc)} bytes -> {len(got)} bytes identical to the "
+            f"{'quantised ' if lossy else ''}original and to the native walker; "
+            f"device {t1 - t0:.3f} s, native {t2 - t1:.3f} s (host clock); "
+            f"device stages (s): {_stage_line()}")
+    launches, twins = _counts()
+    log(f"[decode] launches {launches} twin calls {twins}")
+    return launches, twins
+
+
+def phase_decode_step(device, dexqv: bytes):
+    import torch
+    from dextractor_tpu_torch.ops.decode2 import decode_entry_batch2
+    from dextractor_tpu_torch.testing import batch_to, decode_batch
+
+    args, kw = decode_batch(dexqv)
+    dargs = batch_to(args, device)
+    rows = decode_entry_batch2(*dargs, **kw)
+    n = len(args[5])
+    if rows.device.type != torch.device(device).type or rows.shape != (5, n, kw["max_len"]):
+        raise AssertionError("the decode step did not run where its inputs lie")
+    if not on_card(device):
+        return
+    payload = 5 * int(args[5].sum())
+    ms = cuda_ms(lambda: decode_entry_batch2(*dargs, **kw), reps=5, rounds=5)
+    busy, n_ops = device_ms(lambda: decode_entry_batch2(*dargs, **kw), reps=5)
+    share = "not measured" if busy is None else f"{busy / ms:.3f}"
+    log(f"[decode step] decode_entry_batch2 {n} rows, max_len {kw['max_len']}, "
+        f"max_tokens {kw['max_tokens']}, {kw['del_mode']}/{kw['sub_mode']}: {ms} ms "
+        f"median (CUDA events), {payload / ms / 1e6} GB/s of {payload} payload "
+        f"bytes; device busy {busy} ms in {n_ops} device ops (profiler), busy "
+        f"share {share}")
+
+
+def phase_decode_long(device, dexqv: bytes):
+    """Device time of each decode kernel over one
+    decode_dexqv_to_quiva(device=True) of the long-read batch, where every
+    read is one chain per channel (profiler), and the host-clock time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dextractor_tpu_torch.codecs.qv_codec import decode_dexqv_to_quiva
+
+    if not on_card(device):
+        return
+    decode_dexqv_to_quiva(dexqv, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode_dexqv_to_quiva(dexqv, device=device)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    parts = []
+    for name in DECODE_KERNELS:
+        k = [e for e in ev if f"{name}_kernel" in e.name]
+        parts.append(f"{name} {sum(e.time_range.elapsed_us() for e in k) / 1000} ms "
+                     f"in {len(k)} launches (longest "
+                     f"{max((e.time_range.elapsed_us() for e in k), default=0) / 1000} ms)")
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1000
+    log(f"[decode long] long-read batch, one chain per read and channel: device time "
+        f"(profiler) {'; '.join(parts)}; all device ops {busy} ms; host clock "
+        f"{wall:.3f} s with the profiler on")
+
+
+def _path_launches(path, launches, twins, kernels):
+    missing = [k for k in kernels if launches.get(k, 0) <= 0]
+    if missing or any(twins.values()):
+        raise AssertionError(f"{path} path: kernels not launched {missing}, "
+                             f"twin calls {twins}")
 
 
 def main() -> int:
@@ -357,20 +696,25 @@ def main() -> int:
     phase_environment()
     phase_build()
     uniform = uniform_quiva()
-    res = phase_kernels(uniform)
-    launches, twins = phase_slice(True, corpora(uniform))
-    missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
-    if missing or any(twins.values()):
-        raise AssertionError(f"main path: kernels not launched {missing}, "
-                             f"twin calls {twins}")
-    phase_step("cuda", uniform)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    res = phase_encode_kernels("cuda", uniform)
+    launches, twins, encoded = phase_encode_slice(True, corpora(uniform))
+    _path_launches("encode", launches, twins, ENCODE_KERNELS)
+    phase_encode_step("cuda", uniform)
+    res.update(phase_decode_kernels("cuda", encoded))
+    d_launches, d_twins = phase_decode_slice(True, encoded)
+    _path_launches("decode", d_launches, d_twins, DECODE_KERNELS)
+    launches.update({k: d_launches[k] for k in DECODE_KERNELS})
+    phase_decode_step("cuda", encoded[0][3])
+    phase_decode_long("cuda", encoded[-1][3])
+    bad = [m for m in sys.modules if m in ("jax", "dextractor_tpu")
+           or m.startswith(("jax.", "dextractor_tpu."))]
+    if bad:
+        raise AssertionError(f"imported {bad}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": rep,
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **res[name]}
-        for name, rep in KERNELS.items()]}))
+        for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,19 +1,23 @@
 """dextractor_tpu_torch — the PyTorch/CUDA port of dextractor_tpu.
 
 The port goes one slice at a time beside the JAX package, which stays the
-reference it is held against byte for byte.  This slice is the ``.dexqv``
-encode path:
+reference it is held against byte for byte.  The slices so far are the
+``.dexqv`` encode and decode paths:
 
-- ``codecs.qv_codec.encode_quiva_to_dexqv``: the library entry point;
-- ``parallel.pipeline.qv_encode_step``: the batched five-channel step;
-- ``ops.emit``: wrappers of the hand-written CUDA kernels K1-K3
-  (``ops/csrc/emit.cu``, built for sm_90a at first use), with their plain
-  PyTorch twins in ``ops.bitstream_torch`` and ``parallel.pipeline``;
-- ``cli``: ``python -m dextractor_tpu_torch dexqv``.
+- ``codecs.qv_codec.encode_quiva_to_dexqv`` / ``decode_dexqv_to_quiva``:
+  the library entry points;
+- ``parallel.pipeline.qv_encode_step`` and ``ops.decode2.decode_entry_batch2``:
+  the batched five-channel encode and decode steps;
+- ``ops.emit`` (K1-K3), ``ops.decode_chains`` (K4, K5) and ``ops.expand``
+  (K6): wrappers of the hand-written CUDA kernels in ``ops/csrc/`` (built
+  for sm_90a at first use), with their plain PyTorch twins in
+  ``ops.bitstream_torch``, ``parallel.pipeline`` and ``ops.decode2``;
+- ``cli``: ``python -m dextractor_tpu_torch dexqv`` and ``undexqv``.
 
-The package imports ``torch`` and never ``jax``.  It reuses the JAX-free
-host modules of ``dextractor_tpu`` (``formats.quiva``, ``formats.ragged``,
-``native``, ``utils``, ``cli._common``).
+The package imports ``torch`` and never ``jax``, and nothing of
+``dextractor_tpu``: it keeps its own copies of the host modules it needs
+(``formats.quiva``, ``formats.ragged``, ``native`` and its C sources,
+``utils``, ``cli._common``).
 """
 
 __version__ = "0.1.0"

@@ -1,14 +1,14 @@
 """Command-line tools of the port, mirroring the reference suite.
 
 Each tool is runnable as ``python -m dextractor_tpu_torch <tool>``.  Only
-``dexqv`` is ported so far.
+``dexqv`` and ``undexqv`` are ported so far.
 """
 
 from __future__ import annotations
 
 import sys
 
-TOOLS = ("dexqv",)
+TOOLS = ("dexqv", "undexqv")
 
 
 def main(argv: list[str] | None = None) -> int:

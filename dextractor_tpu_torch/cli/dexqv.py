@@ -4,9 +4,8 @@ from __future__ import annotations
 
 import sys
 
-from dextractor_tpu.cli._common import codec_tool
-
 from ..codecs.qv_codec import encode_quiva_to_dexqv
+from ._common import codec_tool
 
 USAGE = "[-vkl] <path:quiva> ..."
 HELP = (
@@ -18,9 +17,8 @@ HELP = (
 def main(argv=None) -> int:
     return codec_tool(
         "dexqv", USAGE, HELP, ".quiva", ".dexqv",
-        lambda data, flags, opts: encode_quiva_to_dexqv(data, lossy=flags["l"]),
-        flags_str="vkl",
-        argv=argv, pipe_ok=False)
+        lambda data, flags: encode_quiva_to_dexqv(data, lossy=flags["l"]),
+        "vkl", argv)
 
 
 if __name__ == "__main__":

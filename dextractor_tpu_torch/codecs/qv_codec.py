@@ -1,4 +1,4 @@
-""".quiva -> .dexqv encode (``dextractor_tpu/codecs/qv_codec.py``).
+""".quiva <-> .dexqv (``dextractor_tpu/codecs/qv_codec.py``).
 
 Two-pass flow matching dexqv.c:79-143: a statistics scan over the whole
 file builds six histograms (with the reference's order-dependent
@@ -7,26 +7,31 @@ once per file (QV.c:1029-1136), then every entry's five streams are
 encoded — by the native C channel encoder on the host (``device=False``)
 or as batched device steps (parallel/pipeline.qv_encode_step), one per
 quarter-octave row-length bucket.
+
+Decode (undexqv.c:101-208) parses the coding, then either walks every entry
+with the native sequential decoder on the host (``device=False``) or lets
+the native lens walk find the entries' channel offsets and decodes all of
+them as parallel chains on the device (codecs/qv_batch).
 """
 
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from dextractor_tpu.formats import quiva as qv
-from dextractor_tpu.native import qv_encode_shim
-from dextractor_tpu.formats.ragged import bucket_len, bucket_rows, pad_rows, rows_to_flat
-from dextractor_tpu.utils.errors import FormatError
-
 from ..formats import dexqv as dq
+from ..formats import quiva as qv
+from ..formats.ragged import bucket_len, bucket_rows, pad_rows, rows_to_flat
+from ..native import qv_decode_shim, qv_encode_shim
 from ..ops import bitstream_torch as bt
 from ..ops import twobit as tb
 from ..ops.huffman import make_scheme
 from ..parallel.pipeline import null_run_luts, qv_encode_step
 from ..utils.dispatch import resolve_device
+from ..utils.errors import FormatError
 from ..utils.profiling import stage
 
 DEL, TAG, INS, MRG, SUB = range(5)
@@ -358,3 +363,161 @@ def _encode_entries_device(q: qv.QuivaFile, coding: dq.QVCoding, lossy: bool,
     with stage("device: order+assemble"):
         parts = [entry_order(ch) for ch in chunks]
         return dq.assemble_dexqv(coding, q.wells, q.begs, q.ends, q.qvs, parts)
+
+
+# ---------------------------------------------------------------------------
+# .dexqv -> .quiva decode
+# ---------------------------------------------------------------------------
+
+def _walk_tables(coding: dq.QVCoding):
+    """The schemes as the native walker takes them: (lookups (S, 65536)
+    i32, code lengths (S, 256) u8, types (S,) u8, scheme ids (6,) i32 of
+    del, drun, ins, mrg, sub, srun with -1 for an absent run scheme)."""
+    schemes = []
+
+    def sidx(s):
+        if s is None:
+            return -1
+        s.with_lookup()
+        schemes.append(s)
+        return len(schemes) - 1
+
+    sid = np.array([
+        sidx(coding.del_scheme), sidx(coding.drun_scheme),
+        sidx(coding.ins_scheme), sidx(coding.mrg_scheme),
+        sidx(coding.sub_scheme), sidx(coding.srun_scheme)], np.int32)
+    lookups = np.ascontiguousarray(
+        np.stack([s.lookup for s in schemes]).astype(np.int32))
+    lens = np.ascontiguousarray(
+        np.stack([np.minimum(s.codelens, 255) for s in schemes]).astype(np.uint8))
+    types = np.array([s.type for s in schemes], np.uint8)
+    return lookups, lens, types, sid
+
+
+def _index_native(data: bytes, coding: dq.QVCoding, off: int, newv: bool):
+    """Lens-only native walk: resolve the bit-serial entry chain without
+    materialising any stream (QV.c:1381-1426: every stream's byte length is
+    known only after decoding it).  Returns (wells, begs, ends, qvs, entry
+    offsets, entry lengths, channel offsets (ne, 5), run-token counts
+    (ne, 2))."""
+    lib = qv_decode_shim()
+    lookups, lens, types, sid = _walk_tables(coding)
+    buf = np.frombuffer(data, np.uint8)
+    cap = max(len(buf) // (13 if newv else 7) + 2, 16)
+    wells, begs, ends_, qvs = (np.zeros(cap, np.int32) for _ in range(4))
+    eoffs, elens = np.zeros(cap, np.int64), np.zeros(cap, np.int64)
+    coffs = np.zeros(5 * cap, np.int32)
+    ntoks = np.zeros(2 * cap, np.int32)
+    ne = lib.dxt_qv_walk(
+        _ptr(buf), len(buf), off, _ptr(lookups), _ptr(lens), _ptr(types),
+        _ptr(sid), coding.del_char, coding.sub_char, int(newv), cap, 1 << 62,
+        _ptr(wells), _ptr(begs), _ptr(ends_), _ptr(qvs), _ptr(eoffs),
+        _ptr(elens), None, 0, _ptr(coffs), _ptr(ntoks),
+        0, 0, None, None, None, None, None, 0)
+    if ne < 0:
+        raise FormatError(f"corrupt .dexqv stream (native walker: {ne})")
+    ne = int(ne)
+    return (wells[:ne], begs[:ne], ends_[:ne], qvs[:ne], eoffs[:ne],
+            elens[:ne], coffs[: 5 * ne].reshape(ne, 5),
+            ntoks[: 2 * ne].reshape(ne, 2))
+
+
+def _walk_native(data: bytes, coding: dq.QVCoding, off: int, newv: bool):
+    """Decode all entries with the native sequential walker.  Returns
+    (wells, begs, ends, qvs, lengths, streams (5, total) u8).
+
+    One materialising pass: the output capacity is estimated and doubled on
+    overflow (walker rc -3)."""
+    lib = qv_decode_shim()
+    lookups, lens, types, sid = _walk_tables(coding)
+    buf = np.frombuffer(data, np.uint8)
+    size = len(buf)
+    cap_entries = max(size // (13 if newv else 7) + 2, 16)
+    wells, begs, ends_, qvs = (np.zeros(cap_entries, np.int32) for _ in range(4))
+    eoffs, elens = np.zeros(cap_entries, np.int64), np.zeros(cap_entries, np.int64)
+    cap_total = max(size, 1 << 20)
+    # an RLE escape token (>= 32 bits) expands to at most 65535 symbols, so
+    # a stream byte never decodes to more than ~16K symbols: header fields
+    # claiming more are corrupt, not large
+    cap_limit = max(16384 * size, 1 << 20)
+    while True:
+        out = np.empty(5 * cap_total, np.uint8)
+        ne = lib.dxt_qv_walk(
+            _ptr(buf), size, off, _ptr(lookups), _ptr(lens), _ptr(types),
+            _ptr(sid), coding.del_char, coding.sub_char, int(newv),
+            cap_entries, cap_total,
+            _ptr(wells), _ptr(begs), _ptr(ends_), _ptr(qvs), _ptr(eoffs),
+            _ptr(elens), _ptr(out), 1, None, None,
+            0, 0, None, None, None, None, None, 0)
+        if ne == -3:
+            if cap_total >= cap_limit:
+                raise FormatError("corrupt .dexqv stream: entry lengths exceed "
+                                  "what the stream could encode")
+            cap_total = min(cap_total * 2, cap_limit)
+            continue
+        if ne < 0:
+            raise FormatError(f"corrupt .dexqv stream (native walker: {ne})")
+        break
+    ne = int(ne)
+    total = int(elens[:ne].sum())
+    streams = out.reshape(5, cap_total)[:, :total]
+    return wells[:ne], begs[:ne], ends_[:ne], qvs[:ne], elens[:ne], streams
+
+
+def _decode_entries_device(data: bytes, coding: dq.QVCoding, off: int,
+                           newv: bool, device: torch.device):
+    """Raw-container batch decode: the native lens walk resolves the entry
+    chain (offsets only), then every entry's five streams decode as
+    independent chains on ``device`` (undexqv.c:101-208 output)."""
+    from .qv_batch import fused_decode_entries
+
+    with stage("index walk", len(data)):
+        wells, begs, ends_, qvs, eoffs, elens, coffs, ntoks = _index_native(
+            data, coding, off, newv)
+    rows = fused_decode_entries(np.frombuffer(data, np.uint8), eoffs,
+                                elens.astype(np.int32), coffs, ntoks, coding,
+                                device)
+    rlens = elens.astype(np.int64)
+    with stage("D2H+flat"):
+        streams = np.stack([rows_to_flat(rows[s], rlens) for s in range(5)])
+    return wells, begs, ends_, qvs, rlens, streams
+
+
+def decode_dexqv_to_quiva(data: bytes, upper: bool = False, device=None) -> bytes:
+    """Decode a .dexqv image to .quiva text (undexqv.c:101-208).
+
+    device=False -> the native sequential walker on the host;
+    device=True  -> entry boundaries by the native lens walk, stream content
+                    by the batched decode on the CUDA device (raises without
+                    one);
+    "cpu" / "cuda" / a torch.device -> the batched decode there ("cpu" runs
+                    the kernels' plain twins);
+    device=None  -> utils/dispatch.device_default(), as the encoder.
+    ``upper`` writes the delTag in upper case (-U).  A container written on
+    a host of the other byte order raises FormatError: its decoder is not
+    ported yet (ROADMAP.md, queue 1).
+    """
+    if len(data) < 2:
+        raise FormatError("not a .dexqv file (empty or truncated)")
+    with stage("tables", len(data)):
+        mv = memoryview(data)
+        (key,) = struct.unpack_from("<H", mv, 0)
+        newv = key in (dq.CONTAINER_KEY, 0xAA55)
+        coding, off = dq.parse_qvcoding(mv, 2 if newv else 0)  # legacy: no key
+    if coding.flip:
+        raise FormatError("this .dexqv was written on a host of the other byte "
+                          "order; its decoder is not ported yet (ROADMAP.md)")
+    dev = resolve_device(device)
+    if dev is None:
+        with stage("decode", len(data)):
+            wells, begs, ends_, qvs, lengths, streams = _walk_native(
+                data, coding, off, newv)
+    else:
+        wells, begs, ends_, qvs, lengths, streams = _decode_entries_device(
+            data, coding, off, newv, dev)
+    if upper:                                             # undexqv.c:198-204
+        streams = streams.copy()
+        streams[TAG] = streams[TAG] - 32
+    with stage("assemble", int(np.asarray(lengths).sum()) * 5):
+        return qv.write_quiva(coding.prefix, wells, begs, ends_, qvs, lengths,
+                              streams)

@@ -1,8 +1,9 @@
-"""Byte-exact .dexqv container writer (``dextractor_tpu/formats/dexqv.py``).
+"""Byte-exact .dexqv container layer (``dextractor_tpu/formats/dexqv.py``).
 
-Layout (dexqv.c:104-143, QV.c:1173-1320):
+Layout (dexqv.c:104-143, QV.c:1173-1320, undexqv.c:101-208):
 
-  uint16 0x55aa container key
+  uint16 0x55aa container key          (legacy files omit it; the decoder
+                                        rewinds when absent, undexqv.c:103-110)
   QVcoding:
     uint16 0x33cc codec key
     uint16 delChar (256 => none), uint16 subChar (256 => none)
@@ -22,10 +23,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from dextractor_tpu.native import qv_encode_shim
-from dextractor_tpu.utils.errors import FormatError
-
-from ..ops.huffman import HScheme, scheme_bytes
+from ..native import qv_encode_shim
+from ..ops.huffman import HScheme, parse_scheme, scheme_bytes
+from ..utils.errors import FormatError
 
 CODEC_KEY = 0x33CC
 CONTAINER_KEY = 0x55AA
@@ -42,6 +42,7 @@ class QVCoding:
     del_char: int            # -1 if none
     sub_char: int            # -1 if none
     prefix: bytes
+    flip: bool = False       # written on a big-endian host (parse side only)
 
 
 def coding_from_reference(c) -> QVCoding:
@@ -56,7 +57,8 @@ def coding_from_reference(c) -> QVCoding:
     return QVCoding(scheme(c.del_scheme), scheme(c.ins_scheme),
                     scheme(c.mrg_scheme), scheme(c.sub_scheme),
                     scheme(c.drun_scheme), scheme(c.srun_scheme),
-                    int(c.del_char), int(c.sub_char), bytes(c.prefix))
+                    int(c.del_char), int(c.sub_char), bytes(c.prefix),
+                    bool(getattr(c, "flip", False)))
 
 
 def qvcoding_bytes(c: QVCoding) -> bytes:
@@ -75,6 +77,41 @@ def qvcoding_bytes(c: QVCoding) -> bytes:
     if c.sub_char >= 0:
         out += scheme_bytes(c.srun_scheme)
     return bytes(out)
+
+
+def parse_qvcoding(mv: memoryview, off: int) -> tuple[QVCoding, int]:
+    """Read_QVcoding (QV.c:1243-1320): the coding at ``off`` and the offset
+    past it.  A codec key other than 0x33cc means the file was written on a
+    host of the other byte order: its fields are read big-endian."""
+    if off + 2 > len(mv):
+        raise FormatError("could not read flip byte (QVcoding)")
+    (key,) = struct.unpack_from("<H", mv, off)
+    flip = key != CODEC_KEY
+    off += 2
+    end = ">" if flip else "<"
+    if off + 8 > len(mv):
+        raise FormatError("could not read the QVcoding header")
+    dc, sc, plen = struct.unpack_from(end + "HHi", mv, off)
+    off += 8
+    if plen < 0 or off + plen > len(mv):
+        raise FormatError("could not read header name (QVcoding)")
+    prefix = bytes(mv[off:off + plen])
+    off += plen
+
+    del_char = -1 if dc >= 256 else dc
+    sub_char = -1 if sc >= 256 else sc
+    del_s, off = parse_scheme(mv, off, flip)
+    drun = None
+    if del_char >= 0:
+        drun, off = parse_scheme(mv, off, flip)
+    ins_s, off = parse_scheme(mv, off, flip)
+    mrg_s, off = parse_scheme(mv, off, flip)
+    sub_s, off = parse_scheme(mv, off, flip)
+    srun = None
+    if sub_char >= 0:
+        srun, off = parse_scheme(mv, off, flip)
+    return QVCoding(del_s, ins_s, mrg_s, sub_s, drun, srun,
+                    del_char, sub_char, prefix, flip), off
 
 
 def assemble_dexqv(coding: QVCoding, wells, begs, ends, qvs,

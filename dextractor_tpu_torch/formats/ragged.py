@@ -1,0 +1,74 @@
+"""Ragged <-> padded-rectangle conversions (host side, vectorized NumPy).
+
+Device kernels want rectangular (N, Lpad) layouts with a length vector; file
+containers want tightly packed variable-length byte runs.  These helpers are
+the bridge and are used by every codec.  The port's own copy of
+``dextractor_tpu/formats/ragged.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def next_pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+def bucket_len(x: int, floor: int = 512) -> int:
+    """Round up to eighth-power-of-two granularity (512, 576, ..., 1024,
+    1152, 1280, ..., 2048, 2304, ...): padded widths waste at most 12.5%.
+    The granularity comes from the power of two below x."""
+    x = max(int(x), floor)
+    gran = max(floor // 8, (1 << (x.bit_length() - 1)) // 8)
+    return (x + gran - 1) // gran * gran
+
+
+def bucket_rows(n: int, floor: int = 8) -> int:
+    """Row-count bucket: round up to eighth-power-of-two granularity, so
+    every plane op pays at most 12.5% dead rows."""
+    n = max(int(n), floor)
+    gran = max(1, (1 << (n.bit_length() - 1)) // 8)
+    return (n + gran - 1) // gran * gran
+
+
+def pad_rows(flat: np.ndarray, lengths: np.ndarray, align: int = 512,
+             pad_value: int = 0, bucket: bool = False) -> np.ndarray:
+    """Scatter flat ragged rows into an (N, Lpad) rectangle.
+
+    With ``bucket``, Lpad is rounded to quarter-octave granularity (kept
+    a multiple of ``align``), so the kernels see few distinct widths and
+    at most ~12.5% dead columns.
+    """
+    n = len(lengths)
+    lpad = max(int(lengths.max(initial=0)), 1)
+    lpad = _round_up(lpad, align)
+    if bucket:
+        lpad = _round_up(lpad, max(align,
+                                   (1 << (lpad.bit_length() - 1)) // 8))
+    out = np.full((n, lpad), pad_value, dtype=flat.dtype)
+    total = int(lengths.sum())
+    if total:
+        starts = np.zeros(n, np.int64)
+        np.cumsum(lengths[:-1], out=starts[1:])
+        row = np.repeat(np.arange(n, dtype=np.int64), lengths)
+        col = np.arange(total, dtype=np.int64) - np.repeat(starts, lengths)
+        out[row, col] = flat[:total]
+    return out
+
+
+def rows_to_flat(rows: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """Gather the first lengths[i] items of each row into one flat array."""
+    n, lpad = rows.shape
+    total = int(lengths.sum())
+    if not total:
+        return np.empty(0, rows.dtype)
+    starts = np.zeros(n, np.int64)
+    np.cumsum(lengths[:-1], out=starts[1:])
+    row = np.repeat(np.arange(n, dtype=np.int64), lengths)
+    col = np.arange(total, dtype=np.int64) - np.repeat(starts, lengths)
+    return rows[row, col]

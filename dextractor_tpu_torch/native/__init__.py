@@ -1,0 +1,96 @@
+"""Native host-side helpers, built on demand with gcc.
+
+The port's own copy of the two shims of ``dextractor_tpu/native/`` that
+the ``.dexqv`` path needs, from copies of their C sources in this
+directory: ``qv_encode.c`` (the host channel encoder, the byte oracle of the
+device encode, plus ragged copies and the scan histograms) and
+``qv_decode.c`` (the sequential entry walker: the host decoder, the lens
+walk that gives the device decoder its entry boundaries, and the .quiva
+text assembler).  Each is compiled once into ``native/build/`` and loaded
+with ctypes; a shim that cannot build raises OSError.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_BUILD = os.path.join(_DIR, "build")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+
+def _build_shim(name: str):
+    src = os.path.join(_DIR, f"{name}.c")
+    out = os.path.join(_BUILD, f"_{name}.so")
+    os.makedirs(_BUILD, exist_ok=True)
+    if (not os.path.exists(out)
+            or os.path.getmtime(out) < os.path.getmtime(src)):
+        # compile to a private temp then os.replace: concurrent builders
+        # (parallel pytest workers) must never dlopen a half-written .so
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = ["gcc", "-O2", "-shared", "-fPIC", src, "-o", tmp]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise OSError(f"building {name} failed: {r.stderr[:500]}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(out)
+
+
+def _declare(lib, signatures):
+    for name, (restype, argtypes) in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
+_DECODE = {
+    "dxt_qv_walk": (_LL, [
+        _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _LL, _LL,
+        _P, _P, _P, _P, _P, _P,
+        _P, _I, _P, _P,
+        _LL, _LL, _P, _P, _P, _P,
+        _P, _LL]),
+    "dxt_quiva_text": (_LL, [_P, _LL, _LL, _P, _P, _P, _P]),
+}
+
+_ENCODE = {
+    "dxt_encode_plain": (_LL, [_P, _P, _LL, _P, _P, _I, _P, _LL, _P]),
+    "dxt_encode_run": (_LL, [_P, _P, _LL, _P, _P, _I, _P, _P, _I, _P, _LL, _P]),
+    "dxt_pack_tags": (_LL, [_P, _P, _P, _LL, _I, _P, _P, _LL, _P]),
+    "dxt_ragged_copy": (None, [_P, _P, _P, _P, _LL]),
+    "dxt_run_hist": (None, [_P, _P, _LL, _I, _P]),
+    "dxt_gather_copy": (None, [_P, _P, _P, _P, _LL]),
+    "dxt_region_merge": (None, [_P, _P, _P, _LL, _LL, _P, _P]),
+    "dxt_qv_scan_hists": (None, [_P, _P, _P, _P, _P, _LL, _P, _P]),
+}
+
+_LIBS: dict = {}
+
+
+def _shim(name: str, signatures):
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = _LIBS[name] = _declare(_build_shim(name), signatures)
+    return lib
+
+
+def qv_decode_shim():
+    """The sequential .dexqv walker and text assembler (raises OSError
+    when it cannot build)."""
+    return _shim("qv_decode", _DECODE)
+
+
+def qv_encode_shim():
+    """The host-side channel encoder and ragged copies (raises OSError
+    when it cannot build)."""
+    return _shim("qv_encode", _ENCODE)

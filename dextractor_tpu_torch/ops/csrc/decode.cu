@@ -1,0 +1,363 @@
+// Hand-written Hopper kernels (sm_90a) of the .dexqv decode path.
+//
+//   dxt_decode_plain  K4a + K4b, replaces dextractor_tpu/ops/decode_conveyor.py::
+//                     plain_chains_conveyor (C channels in one launch) and
+//                     ::plain_chain_conveyor (one channel: the same kernel, C = 1)
+//   dxt_decode_run    K5, replaces dextractor_tpu/ops/decode_conveyor.py::run_chain_conveyor
+//   dxt_expand_runs   K6, replaces dextractor_tpu/ops/expand_pallas.py::expand_runs_pallas,
+//                     and with tag bytes the XLA shift network of decode2.expand_del_tag
+//
+// What they compute is the JAX package's XLA formulation (decode2.plain_chain,
+// run_chain, expand_runs2, expand_del_tag), the reference's Decode and
+// Decode_Run (QV.c:510-691); the plain PyTorch twins in ops/decode2.py compute
+// the same functions, and chip_smoke.py holds each kernel against its twin bit
+// for bit.  None of the TPU machinery carries over: no VMEM conveyor, no
+// interleaved tiles, no advance or shift networks.
+//
+// Bound on the H100.  A Huffman chain is serial: the position of symbol j+1 is
+// known only after symbol j is looked up.  So K4 and K5 are bound by the
+// latency of one chain step (a table lookup in shared memory, a few integer
+// operations), times the longest chain, not by bytes: a 2,000-symbol row is
+// ~1 KB of words in and 2 KB out.  Design: one thread per chain, chains of
+// all C channels in one launch (blockIdx.y is the channel, each with its own
+// rectangle width); the L1 tables and, when it fits in 32 KB, the L2 table
+// sit in shared memory; each thread keeps its 64-bit window (two words) in
+// registers and loads the next word only when the position crosses into it,
+// so most steps touch no global memory.  Symbols leave as 32-bit stores of
+// four, and each chain writes its whole output row, zeros (or padding
+// tokens) past its end included.  K6 is bound by bytes (it writes every
+// column of its rows once): one block per row fills rchar (and -1 for the
+// tags), then a block scan of the run lengths over 1,024-token chunks,
+// carried across chunks, places literal k at column cumsum(runs)[k] + k and
+// its delTag letter beside it.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "block_scan.cuh"
+
+namespace {
+
+constexpr int kMaxChannels = 4;
+constexpr int kChainThreads = 64;
+constexpr long long kSmemL2Max = 8192;  // L2 entries staged in shared memory (32 KB);
+                                        // decode_chains.SMEM_L2_MAX mirrors it
+constexpr int kExpandThreads = 256;
+constexpr int kExpandItems = 4;
+constexpr int kExpandChunk = kExpandThreads * kExpandItems;
+
+struct PlainChannels {
+  const uint32_t* rect[kMaxChannels];  // (N, k) words of each channel
+  long long k[kMaxChannels];
+  int signal[kMaxChannels];            // escape symbol: 255 (type 2) or 256 (never)
+  int subw[kMaxChannels];              // L2 row width, 0: the channel reads L1 only
+};
+
+// A chain's 64-bit window over its row of words; reads past the row repeat
+// its last word (decode2.py:228).  The two words stay in registers, and a
+// word is loaded only when the position moves into it.
+struct Window {
+  const uint32_t* row;
+  long long k;
+  long long cur;
+  uint32_t hi, lo;
+
+  __device__ __forceinline__ uint32_t word(long long i) const {
+    return __ldg(row + (i < 0 ? 0 : (i < k ? i : k - 1)));
+  }
+  __device__ __forceinline__ uint64_t at(long long pos) {
+    const long long w = pos >> 5;
+    if (w != cur) {
+      hi = w == cur + 1 ? lo : word(w);
+      lo = word(w + 1);
+      cur = w;
+    }
+    return (static_cast<uint64_t>(hi) << 32) | lo;
+  }
+};
+
+// Bits [off, off + n) of the window, n <= 16 and off + n <= 64.
+__device__ __forceinline__ int bits_at(uint64_t w, int off, int n) {
+  return static_cast<int>((w >> (64 - n - off)) & ((1u << n) - 1u));
+}
+
+// len << 9 | sym of the 16 window bits cw via the two-level tables; an L2
+// index past the table reads 0 (decode2._entry_lookup).
+__device__ __forceinline__ int lookup(const int* l1, const int* l2, long long l2_len,
+                                      int subw, int lmax, int cw) {
+  int e = l1[cw >> 8];
+  if (subw && ((e >> 20) & 1)) {
+    const long long i2 = static_cast<long long>(e & 0xFFFF) * subw +
+                         ((cw >> (16 - lmax)) & (subw - 1));
+    e = i2 < l2_len ? l2[i2] : 0;
+  }
+  return e;
+}
+
+__device__ __forceinline__ void stage_l2(int* s_l2, const int* f2, long long f2_len) {
+  for (long long i = threadIdx.x; i < f2_len; i += blockDim.x) s_l2[i] = f2[i];
+}
+
+__global__ void __launch_bounds__(kChainThreads)
+decode_plain_kernel(PlainChannels ch, const int* __restrict__ rlens,
+                    const int* __restrict__ pos0, const int* __restrict__ f1,
+                    const int* __restrict__ f2, long long f2_len, int lmax, bool l2_smem,
+                    uint8_t* __restrict__ syms, int* __restrict__ bits_out,
+                    int* __restrict__ last_out, int n_rows, long long max_len) {
+  extern __shared__ int s_l2[];
+  __shared__ int s_l1[256];
+  const int c = blockIdx.y;
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) s_l1[i] = f1[c * 256 + i];
+  if (l2_smem) stage_l2(s_l2, f2, f2_len);
+  __syncthreads();
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n_rows) return;
+
+  const long long r = static_cast<long long>(c) * n_rows + row;
+  const int* l2 = l2_smem ? s_l2 : f2;
+  const int subw = ch.subw[c];
+  const int signal = ch.signal[c];
+  const long long k = ch.k[c];
+  Window win{ch.rect[c] + row * k, k, -2, 0u, 0u};
+  const long long rl = rlens[row];
+  const int len = static_cast<int>(rl < 0 ? 0 : (rl < max_len ? rl : max_len));
+  const bool aligned = (max_len & 3) == 0;
+  uint8_t* out = syms + r * max_len;
+  long long pos = pos0 ? pos0[r] : 0;
+  int last = 0;
+  uint32_t acc = 0;
+  for (int j = 0; j < len; ++j) {
+    const uint64_t w = win.at(pos);
+    const int p = static_cast<int>(pos & 31);
+    const int e = lookup(s_l1, l2, f2_len, subw, lmax, bits_at(w, p, 16));
+    int sym = e & 511;
+    const int nb = (e >> 9) & 31;
+    if (sym == signal) {  // escape: an 8-bit literal follows the code
+      sym = bits_at(w, p + nb, 8);
+      pos += nb + 8;
+      last = 8;
+    } else {
+      pos += nb;
+      last = nb;
+    }
+    if (aligned) {
+      acc |= static_cast<uint32_t>(sym & 0xFF) << (8 * (j & 3));
+      if ((j & 3) == 3) {
+        *reinterpret_cast<uint32_t*>(out + j - 3) = acc;
+        acc = 0u;
+      }
+    } else {
+      out[j] = static_cast<uint8_t>(sym);
+    }
+  }
+  // the rest of the row is zero
+  if (aligned) {
+    long long j = len & ~3;
+    if (len & 3) {
+      *reinterpret_cast<uint32_t*>(out + j) = acc;
+      j += 4;
+    }
+    for (; j < max_len; j += 4) *reinterpret_cast<uint32_t*>(out + j) = 0u;
+  } else {
+    for (long long j = len; j < max_len; ++j) out[j] = 0;
+  }
+  bits_out[r] = static_cast<int>(pos);
+  last_out[r] = last;
+}
+
+__global__ void __launch_bounds__(kChainThreads)
+decode_run_kernel(const uint32_t* __restrict__ rect, long long k,
+                  const int* __restrict__ rlens, const int* __restrict__ pos0,
+                  const int* __restrict__ carry, const int* __restrict__ f1r,
+                  const int* __restrict__ f1s, const int* __restrict__ f2, long long f2_len,
+                  int subw, int lmax, int nsignal, bool l2_smem, int* __restrict__ runs,
+                  int* __restrict__ lits, int* __restrict__ bits_out,
+                  int* __restrict__ last_out, int n_rows, long long max_tokens) {
+  extern __shared__ int s_l2[];
+  __shared__ int s_run[256];
+  __shared__ int s_sym[256];
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
+    s_run[i] = f1r[i];
+    s_sym[i] = f1s[i];
+  }
+  if (l2_smem) stage_l2(s_l2, f2, f2_len);
+  __syncthreads();
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n_rows) return;
+
+  const int* l2 = l2_smem ? s_l2 : f2;
+  Window win{rect + row * k, k, -2, 0u, 0u};
+  const long long rlen = rlens[row];
+  const int cr = carry ? carry[row] : -1;
+  int* rr = runs + row * max_tokens;
+  int* lr = lits + row * max_tokens;
+  long long pos = pos0 ? pos0[row] : 0;
+  long long emitted = 0;
+  long long tok = 0;  // tokens decoded
+  int last = 0;
+  for (long long t = 0; t < max_tokens && emitted < rlen; ++t) {
+    uint64_t w = win.at(pos);
+    int p = static_cast<int>(pos & 31);
+    const int e = lookup(s_run, l2, f2_len, subw, lmax, bits_at(w, p, 16));
+    const int nb = (e >> 9) & 31;
+    bool resc = (e & 511) == 255;  // a run escape: 16-bit run length follows
+    long long run = resc ? bits_at(w, p + nb, 16) : (e & 511);
+    if (t == 0 && cr >= 0) {  // resume inside a run: the stream sits at the literal
+      run = cr;
+      resc = false;
+    } else {
+      pos += nb + (resc ? 16 : 0);
+    }
+    last = resc ? 16 : nb;
+    const long long em1 = emitted + run < rlen ? emitted + run : rlen;
+    int lit = -1;
+    if (em1 < rlen) {
+      w = win.at(pos);
+      p = static_cast<int>(pos & 31);
+      const int e2 = lookup(s_sym, l2, f2_len, subw, lmax, bits_at(w, p, 16));
+      const int snb = (e2 >> 9) & 31;
+      lit = e2 & 511;
+      if (lit == nsignal) {
+        lit = bits_at(w, p + snb, 8);
+        pos += snb + 8;
+        last = 8;
+      } else {
+        pos += snb;
+        last = snb;
+      }
+      emitted = em1 + 1;
+    } else {
+      emitted = em1;
+    }
+    rr[t] = static_cast<int>(run);
+    lr[t] = lit;
+    tok = t + 1;
+  }
+  for (long long t = tok; t < max_tokens; ++t) {  // padding tokens
+    rr[t] = 0;
+    lr[t] = -1;
+  }
+  bits_out[row] = static_cast<int>(pos);
+  last_out[row] = last;
+}
+
+__global__ void __launch_bounds__(kExpandThreads)
+expand_runs_kernel(const int* __restrict__ runs, const int* __restrict__ lits,
+                   long long n_tokens, int rchar, const uint8_t* __restrict__ tag_bytes,
+                   long long tag_width, uint8_t* __restrict__ rows,
+                   int8_t* __restrict__ tags, long long max_len) {
+  __shared__ int s_warp[kExpandThreads / 32];
+  const long long row = blockIdx.x;
+  uint8_t* out = rows + row * max_len;
+  int8_t* tout = tags ? tags + row * max_len : nullptr;
+  if ((max_len & 3) == 0) {
+    const uint32_t fill = static_cast<uint32_t>(rchar & 0xFF) * 0x01010101u;
+    for (long long i = threadIdx.x; i < max_len / 4; i += kExpandThreads) {
+      reinterpret_cast<uint32_t*>(out)[i] = fill;
+      if (tout) reinterpret_cast<uint32_t*>(tout)[i] = 0xFFFFFFFFu;
+    }
+  } else {
+    for (long long i = threadIdx.x; i < max_len; i += kExpandThreads) {
+      out[i] = static_cast<uint8_t>(rchar);
+      if (tout) tout[i] = -1;
+    }
+  }
+  __syncthreads();  // the fill lands before any literal overwrites it
+
+  const int* rr = runs + row * n_tokens;
+  const int* lr = lits + row * n_tokens;
+  const uint8_t* tb = tag_bytes ? tag_bytes + row * tag_width : nullptr;
+  long long carry = 0;  // sum of the runs of earlier chunks
+  for (long long c0 = 0; c0 < n_tokens; c0 += kExpandChunk) {
+    const long long k0 = c0 + threadIdx.x * kExpandItems;
+    int run[kExpandItems], lit[kExpandItems];
+    int local = 0;
+#pragma unroll
+    for (int i = 0; i < kExpandItems; ++i) {
+      const bool in = k0 + i < n_tokens;
+      run[i] = in ? rr[k0 + i] : 0;
+      lit[i] = in ? lr[k0 + i] : -1;
+      local += run[i];
+    }
+    int total;
+    long long d = carry + dxt::block_scan<kExpandThreads>(local, 0, dxt::SumOp(), s_warp, &total);
+#pragma unroll
+    for (int i = 0; i < kExpandItems; ++i) {
+      d += run[i];
+      const long long kk = k0 + i;
+      const long long col = d + kk;
+      if (lit[i] >= 0 && col < max_len) {
+        out[col] = static_cast<uint8_t>(lit[i]);
+        if (tout) {  // code k of the packed tag row, first code in bits 7-6
+          const int code = (kk >> 2) < tag_width ? (tb[kk >> 2] >> (6 - 2 * (kk & 3))) & 3 : 0;
+          tout[col] = static_cast<int8_t>("acgt"[code]);
+        }
+      }
+    }
+    carry += total;
+  }
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes (ops/_build.py).  Each launches on
+// the given stream, never synchronises, and returns cudaGetLastError() (or
+// cudaErrorInvalidValue for arguments the kernel does not take).
+
+extern "C" int dxt_decode_plain(int channels, const void* rects, const void* k_words,
+                                const void* signals, const void* subws, const void* rlens,
+                                const void* pos0, const void* f1, const void* f2,
+                                long long f2_len, int lmax, void* syms, void* bits,
+                                void* last, int n_rows, long long max_len, void* stream) {
+  if (channels <= 0 || n_rows <= 0) return 0;
+  if (channels > kMaxChannels) return static_cast<int>(cudaErrorInvalidValue);
+  PlainChannels ch;
+  bool any_l2 = false;
+  for (int c = 0; c < channels; ++c) {
+    ch.rect[c] = static_cast<const uint32_t* const*>(rects)[c];
+    ch.k[c] = static_cast<const long long*>(k_words)[c];
+    ch.signal[c] = static_cast<const int*>(signals)[c];
+    ch.subw[c] = static_cast<const int*>(subws)[c];
+    any_l2 = any_l2 || ch.subw[c] > 0;
+  }
+  const bool l2_smem = any_l2 && f2_len <= kSmemL2Max;
+  const size_t smem = l2_smem ? static_cast<size_t>(f2_len) * sizeof(int) : 0;
+  const dim3 grid(static_cast<unsigned>((n_rows + kChainThreads - 1) / kChainThreads),
+                  static_cast<unsigned>(channels));
+  decode_plain_kernel<<<grid, kChainThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      ch, static_cast<const int*>(rlens), static_cast<const int*>(pos0),
+      static_cast<const int*>(f1), static_cast<const int*>(f2), f2_len, lmax, l2_smem,
+      static_cast<uint8_t*>(syms), static_cast<int*>(bits), static_cast<int*>(last), n_rows,
+      max_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dxt_decode_run(const void* rect, long long k, const void* rlens, const void* pos0,
+                              const void* carry, const void* f1r, const void* f1s,
+                              const void* f2, long long f2_len, int subw, int lmax, int nsignal,
+                              void* runs, void* lits, void* bits, void* last, int n_rows,
+                              long long max_tokens, void* stream) {
+  if (n_rows <= 0) return 0;
+  const bool l2_smem = subw > 0 && f2_len <= kSmemL2Max;
+  const size_t smem = l2_smem ? static_cast<size_t>(f2_len) * sizeof(int) : 0;
+  decode_run_kernel<<<static_cast<unsigned>((n_rows + kChainThreads - 1) / kChainThreads),
+                      kChainThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(rect), k, static_cast<const int*>(rlens),
+      static_cast<const int*>(pos0), static_cast<const int*>(carry),
+      static_cast<const int*>(f1r), static_cast<const int*>(f1s), static_cast<const int*>(f2),
+      f2_len, subw, lmax, nsignal, l2_smem, static_cast<int*>(runs), static_cast<int*>(lits),
+      static_cast<int*>(bits), static_cast<int*>(last), n_rows, max_tokens);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dxt_expand_runs(const void* runs, const void* lits, long long n_tokens, int rchar,
+                               const void* tag_bytes, long long tag_width, void* rows, void* tags,
+                               int n_rows, long long max_len, void* stream) {
+  if (n_rows <= 0) return 0;
+  expand_runs_kernel<<<static_cast<unsigned>(n_rows), kExpandThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(runs), static_cast<const int*>(lits), n_tokens, rchar,
+      static_cast<const uint8_t*>(tag_bytes), tag_width, static_cast<uint8_t*>(rows),
+      static_cast<int8_t*>(tags), max_len);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -33,6 +33,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "block_scan.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -40,44 +42,13 @@ constexpr int kItems = 4;
 constexpr int kChunk = kThreads * kItems;
 constexpr int kWarps = kThreads / 32;
 
-struct SumOp {
-  __device__ __forceinline__ int operator()(int a, int b) const { return a + b; }
-};
-struct MaxOp {
-  __device__ __forceinline__ int operator()(int a, int b) const { return a > b ? a : b; }
-};
+using dxt::MaxOp;
+using dxt::SumOp;
 
-// Block-wide exclusive scan: returns this thread's exclusive prefix of x and
-// stores the block aggregate in *total.  Every thread of the block must call.
 template <class Op>
 __device__ __forceinline__ int block_scan(int x, int identity, Op op, int* s_warp,
                                           int* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int inc = x;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, inc, d);
-    if (lane >= d) inc = op(inc, y);
-  }
-  if (lane == 31) s_warp[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < kWarps ? s_warp[lane] : identity;
-#pragma unroll
-    for (int d = 1; d < kWarps; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w = op(w, y);
-    }
-    if (lane < kWarps) s_warp[lane] = w;
-  }
-  __syncthreads();
-  int excl = __shfl_up_sync(0xffffffffu, inc, 1);
-  if (lane == 0) excl = identity;
-  if (warp > 0) excl = op(s_warp[warp - 1], excl);
-  *total = s_warp[kWarps - 1];
-  __syncthreads();  // s_warp is reused by the next scan
-  return excl;
+  return dxt::block_scan<kThreads>(x, identity, op, s_warp, total);
 }
 
 struct Emission {

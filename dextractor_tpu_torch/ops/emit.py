@@ -45,7 +45,10 @@ def _route(data) -> bool:
 
 
 def _launch(name, fn, *args):
-    dev = args[0].device
+    """Call C entry point ``fn`` on the current stream of the device of the
+    first tensor argument (tensors pass as data pointers) and count the
+    launch under ``name``; raise on a non-zero ``cudaError_t``."""
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a

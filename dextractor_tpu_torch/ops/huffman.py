@@ -1,8 +1,8 @@
 """Huffman scheme construction, byte-identical to the reference.
 
-A copy of the encode side of ``dextractor_tpu/ops/huffman.py`` that imports
-no JAX (importing the original runs ``dextractor_tpu/ops/__init__``, which
-does).  The encoded bitstream depends on the exact shape of the Huffman
+The port's own copy of ``dextractor_tpu/ops/huffman.py``: scheme build and
+serialise, and the decode side (``parse_scheme``, the 64K peek table).  The
+encoded bitstream depends on the exact shape of the Huffman
 tree, which depends on the reference's array-heap tie-breaking
 (QV.c:91-220), so the algorithm is kept step for step: the same heap load
 order (escape pseudo-symbol first when truncating, then symbols ascending),
@@ -21,7 +21,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from dextractor_tpu.utils.errors import FormatError
+from ..utils.errors import FormatError
 
 HUFF_CUTOFF = 16  # QV.c:26 — must not exceed 16
 
@@ -31,6 +31,23 @@ class HScheme:
     type: int
     codelens: np.ndarray                 # (256,) int32
     codebits: np.ndarray                 # (256,) uint32
+    lookup: np.ndarray | None = None     # (65536,) int32 — decode side only
+
+    def with_lookup(self) -> "HScheme":
+        if self.lookup is None:
+            self.lookup = build_lookup(self.codelens, self.codebits)
+        return self
+
+
+def build_lookup(codelens: np.ndarray, codebits: np.ndarray) -> np.ndarray:
+    """64K-entry peek table: top-16-bit window -> symbol (QV.c:365-372)."""
+    look = np.zeros(0x10000, np.int32)
+    for i in range(256):
+        l = int(codelens[i])
+        if l > 0:
+            base = int(codebits[i]) << (16 - l)
+            look[base: base + (1 << (16 - l))] = i
+    return look
 
 
 def _reheap(s: int, heap: list[int], hsize: int, count: list[int]) -> None:
@@ -154,3 +171,29 @@ def scheme_bytes(scheme: HScheme) -> bytes:
         if l > 0:
             out += int(bits[i]).to_bytes(4, "little")
     return bytes(out)
+
+
+def parse_scheme(buf: memoryview, off: int, flip: bool = False) -> tuple[HScheme, int]:
+    """Read_Scheme (QV.c:333-375): the inverse of ``scheme_bytes``; a
+    flipped (big-endian) file stores each code big-endian.  Returns the
+    scheme, with its peek table built, and the offset past it."""
+    if off >= len(buf):
+        raise FormatError("could not read scheme type byte")
+    stype = buf[off]
+    off += 1
+    codelens = np.zeros(256, np.int32)
+    codebits = np.zeros(256, np.uint32)
+    for i in range(256):
+        if off >= len(buf):
+            raise FormatError(f"could not read length of {i}'th code")
+        l = buf[off]
+        off += 1
+        codelens[i] = l
+        if l > 0:
+            if off + 4 > len(buf):
+                raise FormatError(f"could not read bit encoding of {i}'th code")
+            codebits[i] = int.from_bytes(buf[off:off + 4], "big" if flip else "little")
+            off += 4
+    scheme = HScheme(int(stype), codelens, codebits)
+    scheme.with_lookup()
+    return scheme, off

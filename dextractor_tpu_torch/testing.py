@@ -5,7 +5,10 @@ be imported where JAX is absent: that conftest imports it) and gives the
 same bytes for the same generator state.  ``lognormal_lengths`` is
 ``bench.py::lognormal_lengths``.  ``step_batch`` builds the arguments of
 ``qv_encode_step`` for a .quiva image the way ``bench.py`` and
-``__graft_entry__._example_batch`` do.
+``__graft_entry__._example_batch`` do, ``decode_batch`` those of
+``ops.decode2.decode_entry_batch2`` for a .dexqv image the way
+``bench.py::_qv_dec_setup`` does.  ``decode_edge_cases`` builds edge rows of
+the decode kernels with the port's own encode twins.
 """
 
 from __future__ import annotations
@@ -92,10 +95,9 @@ def step_batch(quiva: bytes):
     """(qv_encode_step arguments, run_on) for a whole .quiva image as one
     rectangle: rows padded by ``pad_rows(align=512, bucket=True)`` and the
     row count by ``bucket_rows``, as ``bench.py`` builds its headline step."""
-    from dextractor_tpu.formats.quiva import parse_quiva
-    from dextractor_tpu.formats.ragged import bucket_rows, pad_rows
-
     from .codecs.qv_codec import create_qvcoding, scan_quiva, step_tables
+    from .formats.quiva import parse_quiva
+    from .formats.ragged import bucket_rows, pad_rows
 
     q = parse_quiva(quiva)
     lengths = q.lengths.astype(np.int64)
@@ -110,3 +112,263 @@ def step_batch(quiva: bytes):
     coding = create_qvcoding(scan_quiva(q), q.prefix, False)
     sym, run, rchars, nlut, run_on = step_tables(coding)
     return (streams, lengths.astype(np.int32), sym, run, rchars, nlut.copy()), run_on
+
+
+def decode_batch(dexqv: bytes):
+    """(positional arguments, keyword arguments) of ``decode_entry_batch2``
+    for every entry of a .dexqv image as one rectangle: rows padded to
+    ``bucket_rows``, as ``bench.py::_qv_dec_setup`` builds its decode step.
+    The arrays are numpy (rects as int32 bit patterns); del_char/sub_char
+    are ints."""
+    from .codecs.qv_batch import channel_rects, decode_tables_v2
+    from .codecs.qv_codec import _index_native
+    from .formats import dexqv as dq
+    from .formats.ragged import bucket_len, bucket_rows
+
+    coding, off = dq.parse_qvcoding(memoryview(dexqv), 2)
+    _, _, _, _, eoffs, elens, coffs, ntoks = _index_native(dexqv, coding, off, True)
+    n = len(eoffs)
+    n_pad = bucket_rows(n)
+    rlens = np.pad(elens.astype(np.int32), (0, n_pad - n))
+    max_len = bucket_len(int(rlens.max(initial=0)), 512)
+    max_tokens = bucket_len(int(ntoks.max(initial=0)), 16)
+    rects = channel_rects(np.frombuffer(dexqv, np.uint8), eoffs, coffs, max_len)
+    rects = [np.concatenate([r, np.zeros((n_pad - n, r.shape[1]), r.dtype)])
+             for r in rects]
+    rects = [r.view(np.int32) if r.dtype == np.uint32 else r for r in rects]
+    sids, f1, f2, types, del_mode, sub_mode, subw, lmax = decode_tables_v2(coding)
+    chan_l2 = tuple(bool(((f1[sids[k]] >> 20) & 1).any()) for k in range(6))
+    args = (*rects, rlens, sids, f1, f2, types, coding.del_char & 0xFF,
+            coding.sub_char & 0xFF)
+    return args, dict(max_len=max_len, max_tokens=max_tokens, del_mode=del_mode,
+                      sub_mode=sub_mode, subw=subw, lmax=lmax, chan_l2=chan_l2)
+
+
+def batch_to(args, device):
+    """``decode_batch`` arguments with the rects, rlens and tables as
+    tensors on ``device`` (sids and types stay host arrays)."""
+    import torch
+
+    return tuple(torch.from_numpy(a).to(device) if i in (0, 1, 2, 3, 4, 5, 7, 8)
+                 else a for i, a in enumerate(args))
+
+
+def edge_schemes() -> dict:
+    """Schemes for the decode edge cases: codes of at most 8, 12 and 16
+    bits, a truncated type-2 scheme whose rare symbols escape, a
+    single-symbol scheme (0-bit codes) and a run scheme whose runs over 3
+    take long codes and 255 and over the 16-bit escape.  name ->
+    (scheme, alphabet size)."""
+    from .ops.huffman import make_scheme
+
+    rng = np.random.default_rng(5)
+    h = {k: np.zeros(256, np.int64) for k in
+         ("lmax8", "lmax12", "lmax16", "type2", "zero_bit", "run")}
+    h["lmax8"][:30] = 50
+    h["lmax12"][:44] = rng.integers(1, 100, 44)
+    h["lmax16"][:] = rng.integers(1, 100, 256)
+    h["type2"][:] = 1
+    h["type2"][:40] += (1.6 ** np.arange(40)).astype(np.int64)
+    h["zero_bit"][0] = 1000
+    h["run"][:] = 1
+    h["run"][:4] = 50_000
+    sizes = {"lmax8": 30, "lmax12": 44, "lmax16": 256, "type2": 256,
+             "zero_bit": 1, "run": 256}
+    return {k: (make_scheme(v), sizes[k]) for k, v in h.items()}
+
+
+def decode_edge_cases(device, long_len: int = 70_000, row_len: int = 2500):
+    """Edge cases of the decode kernels on ``device``, encoded by the port's
+    encode twins (ops/bitstream_torch), so each decode has an exact answer:
+    (name, wrapper name, args, kwargs, expect).  The wrapper is
+    ``decode_plain`` or ``decode_run`` of ops/decode_chains; ``expect``
+    holds the symbols each chain must decode ("syms", zero-padded, or for
+    run chains the expanded rows with "rchar"), and the encoder's "t" and
+    "lg", which the chain's ``bits`` and ``last`` must equal.
+
+    The cases: four plain channels with different schemes and rectangle
+    widths in one launch (type-2 escapes, codes up to 12 and 16 bits with
+    the L2 table, 0-bit codes); one channel with lmax 12 tables and a
+    ``long_len``-symbol row; plain chains resumed at ``pos0``; run chains
+    with runs over 255 (the 16-bit escape) and up to 65,535, type-2
+    literal escapes, and chains resumed at ``pos0`` inside a run
+    (``carry``).  Rows of 0 and 1 symbols throughout.  The plain rows and
+    the type-2 run rows are up to ``row_len`` symbols wide.  Together the
+    cases hold L2 tables of more and of fewer entries than
+    ``ops.decode_chains.SMEM_L2_MAX``."""
+    import torch
+
+    from .ops import bitstream_torch as bt
+    from .ops import decode2 as d2
+
+    sch = edge_schemes()
+    rng = np.random.default_rng(23)
+    dev = torch.device(device)
+    cases = []
+
+    def tensor(x, dtype=torch.int32):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(dev, dtype)
+
+    def tables(names):
+        f1, f2, subw, lmax = d2.scheme_tables2([sch[k][0] for k in names])
+        subws = [subw if ((f1[i] >> 20) & 1).any() else 0 for i in range(len(names))]
+        return tensor(f1), tensor(f2), subws, lmax
+
+    def signal(name):
+        return 255 if sch[name][0].type == 2 else 256
+
+    def plain_case(name, names, data, lengths, starts=None):
+        """data (C, N, L); chains decode lengths - starts symbols from bit
+        t(data[:starts])."""
+        c, n, l = data.shape
+        luts = tensor(np.stack([bt.scheme_luts(sch[k][0]) for k in names]))
+        dd, ln = tensor(data, torch.uint8), tensor(lengths)
+        words, t, lg = bt.encode_plain_ref(dd, ln, luts)
+        starts = np.zeros(n, np.int64) if starts is None else starts
+        rl = (lengths - starts).astype(np.int32)
+        pos0 = None
+        if starts.any():
+            pos0 = bt.encode_plain_ref(dd, tensor(starts), luts)[1]
+        rects = []
+        for k in range(c):      # a different rectangle width per channel
+            kw = int(((t[k].long() + 31) >> 5).max()) + 1 + k
+            rects.append(words[k][:, :kw].contiguous())
+        f1, f2, subws, lmax = tables(names)
+        syms = np.zeros((c, n, l), np.uint8)
+        for r in range(n):
+            syms[:, r, :rl[r]] = data[:, r, starts[r]:lengths[r]]
+        lg = torch.where(tensor(rl)[None] > 0, lg, 0)
+        cases.append((name, "decode_plain",
+                      (rects, tensor(rl), f1, f2, [signal(k) for k in names], subws),
+                      dict(max_len=l, lmax=lmax, pos0=pos0),
+                      dict(syms=syms, t=t, lg=lg)))
+
+    def draw(name, n, l):
+        return rng.integers(0, sch[name][1], (n, l)).astype(np.uint8)
+
+    # four plain channels, one launch
+    names = ["type2", "lmax12", "lmax16", "zero_bit"]
+    w = row_len
+    lengths = np.array([w, 0, 1, w - 1, w // 2 - 16, w, 7, w * 4 // 5 - 1])
+    data = np.stack([draw(k, len(lengths), w) for k in names])
+    plain_case("plain C=4: type-2 escapes, lmax 12/16 (L2), 0-bit codes",
+               names, data, lengths)
+    # one channel, lmax 12 tables (subw 16), a long row
+    lengths = np.array([long_len, 1, 0, min(5000, long_len)])
+    plain_case(f"plain C=1: lmax 12 tables, a {long_len}-symbol row", ["lmax12"],
+               draw("lmax12", 4, long_len)[None], lengths)
+    # plain chains resumed at pos0
+    names = ["type2", "lmax8"]
+    lengths = np.array([w, w * 4 // 5, 1, w - 100, w * 9 // 25])
+    starts = np.array([w // 2 - 16, 0, 0, w - 101, 17])
+    plain_case("plain C=2: resumed at pos0", names,
+               np.stack([draw(k, len(lengths), w) for k in names]), lengths, starts)
+
+    rchar = ord("f")
+
+    def run_rows(n, l, dense):
+        d = np.full((n, l), rchar, np.uint8)
+        lit = rng.random((n, l)) < dense
+        d[lit] = rng.integers(0, 256, int(lit.sum()))
+        d[d == rchar] = rchar
+        return d
+
+    def run_case(name, sym, data, lengths, starts=None, carry=None):
+        n, l = data.shape
+        sl = tensor(bt.scheme_luts(sch[sym][0])[None])
+        rlut = tensor(bt.scheme_luts(sch["run"][0], run=True)[None])
+        rc = tensor([rchar])
+        dd, ln = tensor(data[None], torch.uint8), tensor(lengths)
+        words, t, lg = bt.encode_run_ref(dd, ln, sl, rlut, rc)
+        starts = np.zeros(n, np.int64) if starts is None else starts
+        rl = (lengths - starts).astype(np.int32)
+        pos0 = None
+        if starts.any():
+            cut = starts if carry is None else starts + np.maximum(carry, 0)
+            pos0 = bt.encode_run_ref(dd, tensor(cut), sl, rlut, rc)[1][0]
+        kw = int(((t[0].long() + 31) >> 5).max()) + 1
+        f1, f2, subws, lmax = tables(["run", sym])
+        rows = np.full((n, l), rchar, np.uint8)
+        for r in range(n):
+            rows[r, :rl[r]] = data[r, starts[r]:lengths[r]]
+        lits = (data != rchar) & (np.arange(l) < lengths[:, None])
+        max_tokens = int(lits.sum(1).max()) + 1
+        lg0 = torch.where(tensor(rl) > 0, lg[0], 0)
+        cases.append((name, "decode_run",
+                      (words[0][:, :kw].contiguous(), tensor(rl), f1[0], f1[1], f2,
+                       signal(sym)),
+                      dict(max_tokens=max_tokens, subw=max(subws), lmax=lmax, pos0=pos0,
+                           carry=None if carry is None else tensor(carry)),
+                      dict(rows=rows, rchar=rchar, rlens=rl, t=t[0], lg=lg0)))
+
+    # runs over 255 and up to 65,535; rows of 0 and 1 symbols
+    l = max(long_len, 6000)
+    data = run_rows(8, l, 0.2)
+    lengths = np.array([6000, 5000, 3000, 0, 1, 1, long_len, min(65_546, l)])
+    data[0] = rchar
+    data[0, ::300] = 40                    # runs of 299
+    data[1] = rchar                        # one trailing run of 5,000
+    data[4, 0] = 7
+    data[5, 0] = rchar
+    data[6] = rchar
+    data[6, :long_len // 7:1000] = 9       # then one long trailing run
+    data[7] = rchar
+    data[7, min(65_535, l - 11)] = 3       # a run of 65,535 before a literal
+    run_case("run: runs over 255 and up to 65,535, lmax 16", "lmax16", data, lengths)
+
+    # resumed inside a run (carry >= 0), or at a run code (carry -1)
+    starts = np.zeros(8, np.int64)
+    carry = np.full(8, -1, np.int64)
+    for r in range(8):
+        lit = np.flatnonzero(data[r, :lengths[r]] != rchar)
+        prev = np.concatenate([[-1], lit[:-1]])
+        gap = lit - prev - 1
+        ok = np.flatnonzero(gap >= 2)
+        if len(ok):                        # inside the run before literal q
+            q = ok[len(ok) // 2]
+            c = gap[q] // 2
+            starts[r] = prev[q] + 1 + c
+            carry[r] = gap[q] - c
+        elif len(lit):                     # just after a literal
+            starts[r] = lit[0] + 1
+    run_case("run: resumed at pos0, inside a run (carry)", "lmax16", data, lengths,
+             starts, carry)
+    # type-2 literal escapes
+    run_case("run: type-2 literal escapes", "type2", run_rows(4, w, 0.6),
+             np.array([w, 1, 0, w * 18 // 25]))
+    return cases
+
+
+def check_decode_case(name, out, expect):
+    """Raise AssertionError unless a decode wrapper's outputs ``out``
+    answer ``expect`` of ``decode_edge_cases``."""
+    import torch
+
+    from .ops import decode2 as d2
+
+    if "syms" in expect:
+        syms, bits, last = out
+        ok = np.array_equal(syms.cpu().numpy(), expect["syms"])
+    else:
+        runs, lits, bits, last = out
+        rows = d2.expand_runs2(runs.cpu(), lits.cpu(), expect["rchar"],
+                               max_len=expect["rows"].shape[1]).numpy()
+        col = np.arange(rows.shape[1])[None, :] < expect["rlens"][:, None]
+        ok = np.array_equal(np.where(col, rows, 0), np.where(col, expect["rows"], 0))
+    stats = (torch.equal(bits.cpu(), expect["t"].cpu().to(torch.int32))
+             and torch.equal(last.cpu(), expect["lg"].cpu().to(torch.int32)))
+    if not (ok and stats):
+        raise AssertionError(f"{name}: decoded symbols {'ok' if ok else 'wrong'}, "
+                             f"bits/last {'ok' if stats else 'differ from the encoder'}")
+
+
+def lossy_quiva(quiva: bytes) -> bytes:
+    """What a lossy .dexqv of ``quiva`` decodes to: insQV & 0xFE and
+    mrgQV & 0xFC (QV.c:1049-1065)."""
+    from .formats.quiva import parse_quiva, write_quiva
+
+    q = parse_quiva(quiva)
+    streams = q.streams.copy()
+    streams[2] &= 0xFE
+    streams[3] &= 0xFC
+    return write_quiva(q.prefix, q.wells, q.begs, q.ends, q.qvs, q.lengths, streams)

@@ -1,28 +1,64 @@
-"""Per-stage wall time for the CLI's ``-v`` table.
+"""Per-stage wall time for the CLI's ``-v`` table and ``chip_smoke.py``.
 
-``stage(name, nbytes)`` records into the JAX package's ``REPORTER``, which
-``dextractor_tpu.cli._common.codec_tool`` enables, resets and prints; unlike
-``REPORTER.stage`` it opens no ``jax.profiler`` annotation, so the port
-never imports JAX.  Device work inside a stage is counted because every
-stage ends by copying its results to the host.
+The port's own copy of ``dextractor_tpu/utils/profiling.py``'s
+``StageStat``/``Reporter``/``REPORTER``, without its ``jax.profiler``
+annotation and ``trace_to``.  ``stage(name, nbytes)`` records into the
+port's ``REPORTER``, which ``cli._common.codec_tool`` enables, resets and
+prints.  Device work inside a stage is counted because every stage ends by
+copying its results to the host.
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
 import time
+from dataclasses import dataclass, field
 
-from dextractor_tpu.utils.profiling import REPORTER, StageStat
+
+@dataclass
+class StageStat:
+    name: str
+    seconds: float = 0.0
+    nbytes: int = 0
+    calls: int = 0
+
+    @property
+    def gbps(self) -> float:
+        return self.nbytes / self.seconds / 1e9 if self.seconds else 0.0
 
 
-@contextlib.contextmanager
-def stage(name: str, nbytes: int = 0):
-    if not REPORTER.enabled:
+@dataclass
+class Reporter:
+    stages: dict = field(default_factory=dict)
+    enabled: bool = True
+
+    @contextlib.contextmanager
+    def stage(self, name: str, nbytes: int = 0):
+        if not self.enabled:
+            yield
+            return
+        t0 = time.perf_counter()
         yield
-        return
-    t0 = time.perf_counter()
-    yield
-    st = REPORTER.stages.setdefault(name, StageStat(name))
-    st.seconds += time.perf_counter() - t0
-    st.nbytes += nbytes
-    st.calls += 1
+        st = self.stages.setdefault(name, StageStat(name))
+        st.seconds += time.perf_counter() - t0
+        st.nbytes += nbytes
+        st.calls += 1
+
+    def report(self, out=None) -> None:
+        if not self.stages:
+            return
+        if out is None:          # bind at call time (redirect_stderr)
+            out = sys.stderr
+        width = max(len(s) for s in self.stages) + 2
+        out.write(f"{'stage':<{width}}{'calls':>6}{'secs':>10}{'GB/s':>10}\n")
+        for st in self.stages.values():
+            gb = f"{st.gbps:.2f}" if st.nbytes else "-"
+            out.write(f"{st.name:<{width}}{st.calls:>6}{st.seconds:>10.3f}{gb:>10}\n")
+
+
+REPORTER = Reporter(enabled=False)
+
+
+def stage(name: str, nbytes: int = 0):
+    return REPORTER.stage(name, nbytes)

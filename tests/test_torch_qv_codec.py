@@ -85,23 +85,51 @@ def test_cli_dexqv(corpora, tmp_path):
 
 
 def test_port_imports_no_jax(tmp_path):
-    code = (
-        "import sys, numpy as np\n"
-        "from dextractor_tpu_torch.cli import main\n"
-        "from dextractor_tpu_torch.codecs.qv_codec import encode_quiva_to_dexqv\n"
-        "from dextractor_tpu_torch.testing import make_quiva\n"
-        "import chip_smoke\n"
-        "d = make_quiva(np.random.default_rng(0), n_reads=6)\n"
-        "assert encode_quiva_to_dexqv(d, device='cpu') == "
-        "encode_quiva_to_dexqv(d, device=False)\n"
-        f"open({str(tmp_path / 'a.quiva')!r}, 'wb').write(d)\n"
-        f"assert main(['dexqv', '-vk', {str(tmp_path / 'a.quiva')!r}]) == 0\n"
-        "print('jax' in sys.modules)\n")
+    """In a fresh interpreter: import every module of the port and
+    chip_smoke, encode and decode on the CPU, run the CLI, and rehearse
+    every phase of chip_smoke on the CPU at the smallest sizes that reach
+    each branch (the wrappers run their twins there; tests/test_torch_decode_*
+    cover the decode at larger sizes).  Neither jax nor the JAX package may be imported."""
+    path = str(tmp_path / "a.quiva")
+    code = f"""
+import importlib, pkgutil, sys
+import numpy as np
+import dextractor_tpu_torch
+for m in pkgutil.walk_packages(dextractor_tpu_torch.__path__, "dextractor_tpu_torch."):
+    if not m.name.endswith("__main__"):
+        importlib.import_module(m.name)
+import chip_smoke
+from dextractor_tpu_torch.cli import main
+from dextractor_tpu_torch.codecs.qv_codec import decode_dexqv_to_quiva, encode_quiva_to_dexqv
+from dextractor_tpu_torch.testing import make_quiva
+d = make_quiva(np.random.default_rng(0), n_reads=6)
+enc = encode_quiva_to_dexqv(d, device="cpu")
+assert enc == encode_quiva_to_dexqv(d, device=False)
+assert decode_dexqv_to_quiva(enc, device="cpu") == d == decode_dexqv_to_quiva(enc, device=False)
+open({path!r}, "wb").write(d)
+assert main(["dexqv", "-vk", {path!r}]) == 0
+small = make_quiva(np.random.default_rng(0), n_reads=24, min_len=300, max_len=700)
+# subQV is RLE from 200,000 symbols on: short reads keep the twins' walks short
+sub = make_quiva(np.random.default_rng(7), n_reads=700, min_len=280, max_len=300,
+                 sub_heavy=True)
+longr = make_quiva(np.random.default_rng(2), lengths=[2100, 100, 700])
+cases = [("uniform", small, False), ("sub_heavy", sub, False),
+         ("sub_heavy_lossy", sub, True), ("long_reads", longr, False)]
+chip_smoke.phase_encode_kernels("cpu", small, wide_len=600)
+_, _, encoded = chip_smoke.phase_encode_slice("cpu", cases)
+chip_smoke.phase_encode_step("cpu", small)
+chip_smoke.phase_decode_kernels("cpu", encoded, long_len=600, row_len=300)
+chip_smoke.phase_decode_slice("cpu", encoded)
+chip_smoke.phase_decode_step("cpu", encoded[0][3])
+print(sorted(m for m in sys.modules if m in ("jax", "dextractor_tpu")
+             or m.startswith(("jax.", "dextractor_tpu."))))
+"""
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        env=_env(), cwd=REPO, timeout=120)
-    assert r.returncode == 0, r.stderr
-    assert r.stdout.strip() == "False"
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().splitlines()[-1] == "[]"
     assert "encode+assemble" in r.stderr          # the -v stage table
+    assert "[decode] long_reads" in r.stdout
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(sub_heavy=True, del_run=False),
