@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU: the .dexqv encode and
-decode paths.
+decode paths and the 2-bit codecs (.dexta, .dexar).
 
 Run from the repository root on a machine with an sm_90 card:
 
@@ -12,7 +12,7 @@ Phases, each printing one line (or a few) before the final JSON lines:
    CUDA and nvcc versions, the card's copy bandwidth (1 GiB ``copy_``); the
    card must have compute capability (9, 0);
 2. build: compile ops/csrc/*.cu with nvcc for sm_90a, one compiler per
-   source, all at once, timed;
+   source, all at once, and the native C shims with gcc, timed;
 3. encode kernels: K1 (encode_plain), K2 (encode_run) and K3 (pack_tags) on
    the card against their plain PyTorch twins, bit for bit, at the shapes of
    the 16 MB uniform batch and on rows of up to 70,000 symbols;
@@ -33,6 +33,17 @@ Phases, each printing one line (or a few) before the final JSON lines:
 8. decode step: median stream time and busy share of decode_entry_batch2
    on the uniform batch as one rectangle; then the device time of each
    decode kernel over one decode of the long-read batch.
+9. 2-bit kernels: K7 (pack2bit) and the unpack (unpack2bit) against their
+   twins, bit for bit, on the flat reads of the uniform .fasta (32,000
+   reads of 1,950-2,050 bases) and on edge reads (lengths 0-7, a
+   70,000-base read, every byte value) with the base, arrow and a random
+   table and the three letter tables;
+10. 2-bit slice: encode_fasta_to_dexta / encode_arrow_to_dexar and their
+   decoders with device=True on three corpora (the uniform .fasta, a
+   log-normal long-read .fasta, an .arrow of 8,000 reads), each encode byte
+   for byte against the native host path (device=False), each decode
+   against the original text and the native path; both 2-bit kernels
+   launched in this phase, no twin.
 
 Each kernel is timed, at the main path's shapes, as device time per call
 from a torch.profiler trace (``ms``, with L2 flushed before each launch, as
@@ -61,6 +72,7 @@ sys.path.insert(0, REPO)
 
 EMIT = "dextractor_tpu_torch/ops/csrc/emit.cu"
 DECODE = "dextractor_tpu_torch/ops/csrc/decode.cu"
+TWOBIT = "dextractor_tpu_torch/ops/csrc/twobit.cu"
 KERNELS = {   # wrapper name -> (source, the TPU kernel it replaces)
     "encode_plain": (EMIT, "dextractor_tpu/ops/emit_pallas.py:623"),
     "encode_run": (EMIT, "dextractor_tpu/ops/emit_pallas.py:662"),
@@ -69,9 +81,13 @@ KERNELS = {   # wrapper name -> (source, the TPU kernel it replaces)
                              "dextractor_tpu/ops/decode_conveyor.py:986 (K4b)"),
     "decode_run": (DECODE, "dextractor_tpu/ops/decode_conveyor.py:1059"),
     "expand_runs": (DECODE, "dextractor_tpu/ops/expand_pallas.py:53"),
+    "pack2bit": (TWOBIT, "dextractor_tpu/ops/emit_pallas.py:516"),
+    "unpack2bit": (TWOBIT, "none (no pallas_call): the JAX package's unpack is "
+                           "dextractor_tpu/ops/twobit.py:157 unpack_translate, XLA"),
 }
 ENCODE_KERNELS = ("encode_plain", "encode_run", "pack_tags")
 DECODE_KERNELS = ("decode_plain", "decode_run", "expand_runs")
+TWOBIT_KERNELS = ("pack2bit", "unpack2bit")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, published (NVIDIA data sheet)
 COPY_BW = {}                 # the card's measured copy bandwidth, phase 1
 
@@ -109,15 +125,19 @@ def cuda_ms(fn, reps: int = 20, rounds: int = 5, warmup: int = 3) -> float:
 
 def device_ms(fn, reps: int = 20, match: str | None = None, warm: bool = True):
     """Device time per call of fn() in ms: the summed durations of the
-    kernels and copies it ran on the card (only those whose name contains
-    ``match``, when given), from a torch.profiler (CUPTI) trace of ``reps``
-    calls, and the number of those device operations per call.  Unlike
-    cuda_ms it excludes the gaps in which the card waited for the host.
+    kernels and copies it ran on the card, from a torch.profiler (CUPTI)
+    trace of ``reps`` calls, and the number of those device operations per
+    call.  With ``match``, fn() launches one kernel whose name contains
+    ``match``, and the time is the mean duration of its launches in the
+    trace.  Unlike cuda_ms it excludes the gaps in which the card waited
+    for the host.
 
     A trace of a twin's call holds up to ~215,000 device operations, near
-    what the profiler's activity buffers take; a trace that comes back with
-    no device activity at all is taken once more, and said so.  None when
-    the second trace holds no such activity either."""
+    what the profiler's activity buffers take, and a trace can come back
+    with no device activity, or (with ``match``) with fewer than ``reps``
+    of the kernel's launches; such a trace is taken once more, and said so.
+    If the second one again holds some of the kernel's launches, their mean
+    is the time; None when it holds none of the operations sought."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -129,15 +149,15 @@ def device_ms(fn, reps: int = 20, match: str | None = None, warm: bool = True):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        dev = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        ev = [e for e in dev if match is None or match in e.name]
-        if ev:
-            return sum(e.time_range.elapsed_us() for e in ev) / reps / 1000, len(ev) / reps
-        if dev or attempt:
-            return None, 0
-        log(f"[profiler] a trace of {reps} call(s) came back with no device "
-            "activity; tracing again")
+        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and (match is None or match in e.name)]
+        total = sum(e.time_range.elapsed_us() for e in ev) / 1000
+        if ev and (match is None or len(ev) >= reps):
+            return total / (len(ev) if match else reps), len(ev) / reps
+        if attempt:
+            return (total / len(ev), len(ev) / reps) if ev and match else (None, 0)
+        log(f"[profiler] a trace of {reps} call(s) came back with {len(ev)} of the "
+            f"device operations sought; tracing again")
 
 
 def phase_environment():
@@ -177,6 +197,15 @@ def phase_build():
         if "Used" in line or "Compiling entry" in line:
             log(f"[ptxas] {line.strip()}")
     log(f"[build] nvcc sm_90a, {len(_build.sources())} sources at once, {seconds:.2f} s")
+    # the native shims build with gcc at first use: here, so that no
+    # phase's host-clock stages count a compiler
+    from dextractor_tpu_torch import native
+
+    t0 = time.perf_counter()
+    for shim in (native.qv_encode_shim, native.qv_decode_shim,
+                 native.twobit_host_shim, native.dexta_index_shim):
+        shim()
+    log(f"[build] native shims (gcc, where not built yet) {time.perf_counter() - t0:.2f} s")
 
 
 def _masked(x, lim):
@@ -677,6 +706,182 @@ def phase_decode_long(device, dexqv: bytes):
         f"{wall:.3f} s with the profiler on")
 
 
+def twobit_edge_reads(long_len: int = 70_000, seed: int = 17):
+    """Flat reads of lengths 0-7, one of ``long_len`` bases, one of every
+    byte value in order, and a few more, of random bytes 0-255; and their
+    lengths."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = np.array([0, 1, 2, 3, 4, 5, 6, 7, long_len, 256, 3, 0, 1021, 9, 0],
+                       np.int64)
+    flat = rng.integers(0, 256, int(lengths.sum()), dtype=np.uint8)
+    at = int(lengths[:9].sum())
+    flat[at:at + 256] = np.arange(256)
+    return flat, lengths
+
+
+def _twobit_args(flat, lengths, table, device):
+    """(flat, offsets, out_offsets, table, n_out) of pack2bit on ``device``
+    for the flat reads ``flat`` of ``lengths``."""
+    import numpy as np
+    import torch
+
+    offs = np.zeros(len(lengths) + 1, np.int64)
+    np.cumsum(lengths, out=offs[1:])
+    couts = np.zeros(len(lengths) + 1, np.int64)
+    np.cumsum((lengths + 3) >> 2, out=couts[1:])
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (flat, offs, couts, table)) + (int(couts[-1]),)
+
+
+def _host_s(fn, rounds: int = 5) -> float:
+    """Median host-clock seconds of fn() followed by a synchronize."""
+    import torch
+
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def phase_twobit_kernels(device, fasta: bytes, long_len: int = 70_000):
+    """K7 (pack2bit) and the unpack against their twins on ``device``, on the
+    flat reads of ``fasta`` and on ``twobit_edge_reads(long_len)`` with every
+    table; on the card also their times at the corpus's shapes (see
+    ``measure``).  Returns {kernel: {max_abs_err, times...}}."""
+    import numpy as np
+    import torch
+    from dextractor_tpu_torch.formats.fasta import parse_seq_file
+    from dextractor_tpu_torch.ops import pack2bit as pk
+    from dextractor_tpu_torch.ops import twobit as tb
+
+    rng = np.random.default_rng(5)
+    tables = {"base": tb.NUMBER_BASE_LUT, "arrow": tb.NUMBER_ARROW_LUT,
+              "random": rng.integers(0, 4, 256).astype(np.uint8)}
+    letters = {"lower": tb.LOWER_LUT, "upper": tb.UPPER_LUT, "arrow": tb.ARROW_LETTER_LUT}
+    f = parse_seq_file(fasta)
+    res = {}
+
+    def pack_twin(flat, offs, couts, lut, n_out):
+        return tb.pack2bit_twin(flat, offs.diff(), lut)
+
+    def unpack_twin(pay, pay_offs, outs, lut, n_out):
+        return tb.unpack2bit_twin(pay, outs.diff(), lut)
+
+    def check(name, kern, twin, args):
+        got, ref = kern(*args), twin(*args)
+        err = _check_same(name, (got,), (ref,))
+        r = res.setdefault(name, {"max_abs_err": 0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        return got
+
+    def unpack_args(pargs, payload, letter_lut, n_letters):
+        """unpack2bit's arguments for pack2bit's ``pargs`` and output: the
+        payload offsets are pack2bit's out_offsets and the other way round."""
+        return (payload, pargs[2], pargs[1],
+                torch.from_numpy(letter_lut).to(device), n_letters)
+
+    lengths = f.seqs.lengths.astype(np.int64)
+    n, n_sym = len(lengths), int(lengths.sum())
+    pargs = _twobit_args(f.seqs.flat, lengths, tb.NUMBER_BASE_LUT, device)
+    payload = check("pack2bit", pk.pack2bit, pack_twin, pargs)
+    uargs = unpack_args(pargs, payload, tb.LOWER_LUT, n_sym)
+    check("unpack2bit", pk.unpack2bit, unpack_twin, uargs)
+    log(f"[kernel] pack2bit, unpack2bit: {n} reads, {n_sym} bases, {pargs[4]} payload "
+        "bytes, bit-identical to their twins")
+    if on_card(device):
+        offsets = 2 * 8 * (n + 1)
+        res["pack2bit"].update(measure(
+            "pack2bit", lambda: pk.pack2bit(*pargs), lambda: pack_twin(*pargs),
+            n_sym + offsets + 256 + pargs[4]))
+        res["unpack2bit"].update(measure(
+            "unpack2bit", lambda: pk.unpack2bit(*uargs), lambda: unpack_twin(*uargs),
+            pargs[4] + offsets + 4 + n_sym))
+        h2d = _host_s(lambda: torch.from_numpy(f.seqs.flat).to(device))
+        d2h = _host_s(lambda: payload.cpu())
+        log(f"[2-bit copies] host clock, pageable memory: H2D of the {n_sym} bases "
+            f"{h2d} s ({n_sym / h2d / 1e9} GB/s), D2H of the {pargs[4]} payload bytes "
+            f"{d2h} s ({pargs[4] / d2h / 1e9} GB/s)")
+
+    flat, lengths = twobit_edge_reads(long_len)
+    for table in tables.values():
+        pargs = _twobit_args(flat, lengths, table, device)
+        payload = check("pack2bit", pk.pack2bit, pack_twin, pargs)
+        for letter_lut in letters.values():
+            check("unpack2bit", pk.unpack2bit, unpack_twin,
+                  unpack_args(pargs, payload, letter_lut, int(lengths.sum())))
+    log(f"[kernel] 2-bit edge reads (lengths {lengths.tolist()}, every byte value): "
+        f"pack2bit with the {', '.join(tables)} tables and unpack2bit with the "
+        f"{', '.join(letters)} letters bit-identical to their twins")
+    return res
+
+
+def twobit_corpora():
+    from dextractor_tpu_torch.testing import long_fasta, uniform_arrow, uniform_fasta
+
+    return [("uniform_fasta", uniform_fasta(), False),
+            ("long_fasta", long_fasta(), False),
+            ("uniform_arrow", uniform_arrow(), True)]
+
+
+def _sequence_lines(text: bytes):
+    return [line for line in text.split(b"\n") if not line.startswith(b">")]
+
+
+def phase_twobit_slice(device, cases):
+    """The 2-bit codecs end to end on ``device``: each encode against the
+    native host path (device=False), each decode against the original text
+    and the native path; on the card both 2-bit kernels must launch for
+    every corpus.  ``cases`` is [(name, text, arrow)].  Returns (launch
+    counts, twin calls)."""
+    from dextractor_tpu_torch.codecs import twobit_codec as tc
+    from dextractor_tpu_torch.utils import dispatch
+    from dextractor_tpu_torch.utils.profiling import REPORTER
+
+    def timed(fn, *args, **kw):
+        REPORTER.stages.clear()
+        REPORTER.enabled = True
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds = time.perf_counter() - t0
+        REPORTER.enabled = False
+        return out, seconds, _stage_line()
+
+    card = dispatch.resolve_device(device).type == "cuda"
+    dispatch.reset_counts()
+    for name, text, arrow in cases:
+        before = dict(dispatch.LAUNCHES)
+        enc_fn = tc.encode_arrow_to_dexar if arrow else tc.encode_fasta_to_dexta
+        dec_fn = tc.decode_dexar_to_arrow if arrow else tc.decode_dexta_to_fasta
+        enc, e_dev, e_dev_st = timed(enc_fn, text, device=device)
+        ref, e_nat, e_nat_st = timed(enc_fn, text, device=False)
+        if enc != ref:
+            raise AssertionError(f"{name}: device bytes differ from the native host path")
+        dec, d_dev, d_dev_st = timed(dec_fn, enc, device=device)
+        nat, d_nat, d_nat_st = timed(dec_fn, enc, device=False)
+        # .arrow headers may drift by 0.01 in SN (dexar.c:159-163 truncates):
+        # there the sequence lines must equal the original's
+        same = (_sequence_lines(dec) == _sequence_lines(text)) if arrow else dec == text
+        if dec != nat or not same:
+            raise AssertionError(f"{name}: decoded text differs from the "
+                                 f"{'native path' if dec != nat else 'original'}")
+        idle = [k for k in TWOBIT_KERNELS if dispatch.LAUNCHES[k] <= before[k]]
+        if card and idle:
+            raise AssertionError(f"{name}: {idle} not launched")
+        log(f"[2-bit] {name}: {len(text)} bytes of text -> {len(enc)} bytes identical to "
+            f"native -> decoded identical to the {'original sequences' if arrow else 'original'}"
+            f" and to native; encode device {e_dev:.4f} s (stages {e_dev_st}), native "
+            f"{e_nat:.4f} s (stages {e_nat_st}); decode device {d_dev:.4f} s (stages "
+            f"{d_dev_st}), native {d_nat:.4f} s (stages {d_nat_st}) (host clock)")
+    launches, twins = _counts()
+    log(f"[2-bit] launches {launches} twin calls {twins}")
+    return launches, twins
+
+
 def _path_launches(path, launches, twins, kernels):
     missing = [k for k in kernels if launches.get(k, 0) <= 0]
     if missing or any(twins.values()):
@@ -706,6 +911,11 @@ def main() -> int:
     launches.update({k: d_launches[k] for k in DECODE_KERNELS})
     phase_decode_step("cuda", encoded[0][3])
     phase_decode_long("cuda", encoded[-1][3])
+    tcases = twobit_corpora()
+    res.update(phase_twobit_kernels("cuda", tcases[0][1]))
+    t_launches, t_twins = phase_twobit_slice(True, tcases)
+    _path_launches("2-bit", t_launches, t_twins, TWOBIT_KERNELS)
+    launches.update({k: t_launches[k] for k in TWOBIT_KERNELS})
     bad = [m for m in sys.modules if m in ("jax", "dextractor_tpu")
            or m.startswith(("jax.", "dextractor_tpu."))]
     if bad:

@@ -2,22 +2,25 @@
 
 The port goes one slice at a time beside the JAX package, which stays the
 reference it is held against byte for byte.  The slices so far are the
-``.dexqv`` encode and decode paths:
+``.dexqv`` encode and decode paths and the 2-bit codecs:
 
-- ``codecs.qv_codec.encode_quiva_to_dexqv`` / ``decode_dexqv_to_quiva``:
-  the library entry points;
+- ``codecs.qv_codec.encode_quiva_to_dexqv`` / ``decode_dexqv_to_quiva`` and
+  ``codecs.twobit_codec`` (``.fasta`` <-> ``.dexta``, ``.arrow`` <->
+  ``.dexar``): the library entry points;
 - ``parallel.pipeline.qv_encode_step`` and ``ops.decode2.decode_entry_batch2``:
   the batched five-channel encode and decode steps;
-- ``ops.emit`` (K1-K3), ``ops.decode_chains`` (K4, K5) and ``ops.expand``
-  (K6): wrappers of the hand-written CUDA kernels in ``ops/csrc/`` (built
-  for sm_90a at first use), with their plain PyTorch twins in
-  ``ops.bitstream_torch``, ``parallel.pipeline`` and ``ops.decode2``;
-- ``cli``: ``python -m dextractor_tpu_torch dexqv`` and ``undexqv``.
+- ``ops.emit`` (K1-K3), ``ops.decode_chains`` (K4, K5), ``ops.expand``
+  (K6) and ``ops.pack2bit`` (K7 and the 2-bit unpack): wrappers of the
+  hand-written CUDA kernels in ``ops/csrc/`` (built for sm_90a at first
+  use), with their plain PyTorch twins in ``ops.bitstream_torch``,
+  ``parallel.pipeline``, ``ops.decode2`` and ``ops.twobit``;
+- ``cli``: ``python -m dextractor_tpu_torch`` dexqv, undexqv, dexta,
+  undexta, dexar and undexar.
 
 The package imports ``torch`` and never ``jax``, and nothing of
 ``dextractor_tpu``: it keeps its own copies of the host modules it needs
-(``formats.quiva``, ``formats.ragged``, ``native`` and its C sources,
-``utils``, ``cli._common``).
+(``formats.quiva``, ``formats.ragged``, ``formats.fasta``,
+``formats.dexta``, ``native`` and its C sources, ``utils``, ``cli._common``).
 """
 
 __version__ = "0.1.0"

@@ -1,14 +1,14 @@
 """Command-line tools of the port, mirroring the reference suite.
 
-Each tool is runnable as ``python -m dextractor_tpu_torch <tool>``.  Only
-``dexqv`` and ``undexqv`` are ported so far.
+Each tool is runnable as ``python -m dextractor_tpu_torch <tool>``.  Six of
+the reference's eight are ported; ``dextract`` and ``dex2DB`` are not yet.
 """
 
 from __future__ import annotations
 
 import sys
 
-TOOLS = ("dexqv", "undexqv")
+TOOLS = ("dexta", "undexta", "dexar", "undexar", "dexqv", "undexqv")
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -12,25 +12,39 @@ from ..utils.paths import path_to, root, catenate
 
 
 def codec_tool(prog, usage, help_lines, in_suffix, out_suffix, transform,
-               flags_str, argv=None):
+               flags_str, int_opts=None, argv=None):
     """Run a compress/uncompress tool over its file arguments.
 
-    ``transform(data: bytes, flags) -> bytes`` transforms one file image.
-    Mirrors the per-file loop of the reference tools: resolve pwd/root,
-    transform, write sibling output, delete the source unless ``-k``
-    (dexqv.c, undexqv.c).
+    ``transform(data: bytes, flags, opts) -> bytes`` transforms one file
+    image.  Mirrors the per-file loop of the reference tools: resolve
+    pwd/root, transform, write sibling output, delete the source unless
+    ``-k`` (dexqv.c, undexqv.c).  A tool whose ``flags_str`` holds ``i``
+    takes ``-i``: stdin to stdout, no file arguments, ``-k`` implied
+    (dexta.c:72-217).
     """
     from ..utils.profiling import REPORTER
 
-    spec = ArgSpec(prog=prog, usage=usage, flags=flags_str, help_lines=help_lines)
-    flags, files = parse_flags(spec, argv if argv is not None else sys.argv[1:])
+    spec = ArgSpec(prog=prog, usage=usage, flags=flags_str,
+                   int_opts=int_opts or {}, help_lines=help_lines)
+    flags, opts, files = parse_flags(spec, argv if argv is not None else sys.argv[1:])
     # -v turns on the per-stage throughput table (SURVEY §5: the
     # reference's only introspection is per-file progress; the framework
     # adds parse/scan/encode/assemble GB/s counters, printed at exit)
     REPORTER.enabled = bool(flags.get("v"))
     REPORTER.stages.clear()
-    if not files:
+    pipe = flags.get("i", False)
+    if pipe == bool(files):
         usage_exit(spec)
+    if pipe:
+        flags["k"] = True
+        try:
+            out = transform(sys.stdin.buffer.read(), flags, opts)
+        except DextractorError as e:
+            sys.stderr.write(f"{prog}: {e}\n")
+            return 1
+        sys.stdout.buffer.write(out)
+        REPORTER.report()
+        return 0
 
     for path in files:
         pwd = path_to(path)
@@ -46,7 +60,7 @@ def codec_tool(prog, usage, help_lines, in_suffix, out_suffix, transform,
             sys.stderr.write(f"{prog}: Cannot open {src}: {e.strerror}\n")
             return 1
         try:
-            out = transform(data, flags)
+            out = transform(data, flags, opts)
         except DextractorError as e:
             sys.stderr.write(f"{prog}: {e}\n")
             return 1

@@ -17,8 +17,8 @@ HELP = (
 def main(argv=None) -> int:
     return codec_tool(
         "dexqv", USAGE, HELP, ".quiva", ".dexqv",
-        lambda data, flags: encode_quiva_to_dexqv(data, lossy=flags["l"]),
-        "vkl", argv)
+        lambda data, flags, opts: encode_quiva_to_dexqv(data, lossy=flags["l"]),
+        "vkl", argv=argv)
 
 
 if __name__ == "__main__":

@@ -17,8 +17,8 @@ HELP = (
 def main(argv=None) -> int:
     return codec_tool(
         "undexqv", USAGE, HELP, ".dexqv", ".quiva",
-        lambda data, flags: decode_dexqv_to_quiva(data, upper=flags["U"]),
-        "vkU", argv)
+        lambda data, flags, opts: decode_dexqv_to_quiva(data, upper=flags["U"]),
+        "vkU", argv=argv)
 
 
 if __name__ == "__main__":

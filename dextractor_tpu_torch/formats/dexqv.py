@@ -114,6 +114,15 @@ def parse_qvcoding(mv: memoryview, off: int) -> tuple[QVCoding, int]:
                     del_char, sub_char, prefix, flip), off
 
 
+def _ragged_copier():
+    """Native per-entry memcpy (dxt_ragged_copy), or None to use the
+    NumPy fancy-index fallback."""
+    try:
+        return qv_encode_shim().dxt_ragged_copy
+    except OSError:
+        return None
+
+
 def assemble_dexqv(coding: QVCoding, wells, begs, ends, qvs,
                    parts: list[tuple[np.ndarray, np.ndarray]]) -> bytes:
     """Vectorized container assembly from per-entry payload parts.

@@ -8,7 +8,23 @@ the bridge and are used by every codec.  The port's own copy of
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
+
+
+@dataclass
+class Ragged:
+    """A batch of variable-length u8 rows stored flat."""
+
+    flat: np.ndarray      # (total,) u8
+    lengths: np.ndarray   # (N,) int64
+
+    @property
+    def offsets(self) -> np.ndarray:
+        off = np.zeros(len(self.lengths) + 1, np.int64)
+        np.cumsum(self.lengths, out=off[1:])
+        return off
 
 
 def _round_up(x: int, m: int) -> int:
@@ -72,3 +88,38 @@ def rows_to_flat(rows: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     row = np.repeat(np.arange(n, dtype=np.int64), lengths)
     col = np.arange(total, dtype=np.int64) - np.repeat(starts, lengths)
     return rows[row, col]
+
+
+def flat_gather_lens(flat: np.ndarray, starts: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """Gather ragged runs flat[starts[i] : starts[i]+lengths[i]] concatenated."""
+    total = int(lengths.sum())
+    if not total:
+        return np.empty(0, flat.dtype)
+    starts = np.asarray(starts, np.int64)
+    lengths = np.asarray(lengths, np.int64)
+    # the native memcpy path cannot bounds-check; malformed runs (e.g. a
+    # corrupt container yielding negative lengths) must take the NumPy
+    # path below, which raises instead of corrupting the heap
+    valid = bool(len(starts) == len(lengths)
+                 and (lengths >= 0).all() and (starts >= 0).all()
+                 and (starts + lengths <= len(flat)).all())
+    if flat.dtype.itemsize == 1 and valid:
+        try:          # one memcpy per run; the fancy-index gather below
+            from ..native import qv_encode_shim   # costs ~16 index bytes/byte
+            import ctypes
+
+            lib = qv_encode_shim()
+            out = np.empty(total, flat.dtype)
+            ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+            lib.dxt_gather_copy(
+                ptr(out), ptr(np.ascontiguousarray(flat)),
+                ptr(np.ascontiguousarray(starts, np.int64)),
+                ptr(np.ascontiguousarray(lengths, np.int64)), len(lengths))
+            return out
+        except OSError:
+            pass
+    run_starts = np.zeros(len(lengths), np.int64)
+    np.cumsum(lengths[:-1], out=run_starts[1:])
+    idx = (np.arange(total, dtype=np.int64) - np.repeat(run_starts, lengths)
+           + np.repeat(starts, lengths))
+    return flat[idx]

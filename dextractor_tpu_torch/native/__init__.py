@@ -1,13 +1,16 @@
 """Native host-side helpers, built on demand with gcc.
 
-The port's own copy of the two shims of ``dextractor_tpu/native/`` that
-the ``.dexqv`` path needs, from copies of their C sources in this
-directory: ``qv_encode.c`` (the host channel encoder, the byte oracle of the
-device encode, plus ragged copies and the scan histograms) and
-``qv_decode.c`` (the sequential entry walker: the host decoder, the lens
-walk that gives the device decoder its entry boundaries, and the .quiva
-text assembler).  Each is compiled once into ``native/build/`` and loaded
-with ctypes; a shim that cannot build raises OSError.
+The port's own copy of the four shims of ``dextractor_tpu/native/`` that
+its paths need, from copies of their C sources in this directory:
+``qv_encode.c`` (the host channel encoder, the byte oracle of the device
+encode, plus ragged copies and the scan histograms), ``qv_decode.c`` (the
+sequential entry walker: the host decoder, the lens walk that gives the
+device decoder its entry boundaries, and the .quiva text assembler),
+``twobit_host.c`` (the host 2-bit pack and wrapped-text unpack, the byte
+oracle of the 2-bit device path, and the one-pass .fasta/.arrow line scan)
+and ``dexta_index.c`` (the .dexta/.dexar entry walker).  Each is compiled
+once into ``native/build/`` and loaded with ctypes; a shim that cannot
+build raises OSError.
 """
 
 from __future__ import annotations
@@ -74,6 +77,17 @@ _ENCODE = {
     "dxt_qv_scan_hists": (None, [_P, _P, _P, _P, _P, _LL, _P, _P]),
 }
 
+_TWOBIT = {
+    "dxt_pack_seq": (_LL, [_P, _P, _LL, _P, _P, _LL, _P]),
+    "dxt_unpack_text": (_LL, [_P, _P, _P, _LL, _LL, _P, _P, _P]),
+    "dxt_line_stats": (None, [_P, _LL, _I, _P, _P]),
+    "dxt_seq_scan": (_LL, [_P, _LL, _I, _P, _P, _P, _P]),
+}
+
+_DEXTA = {
+    "dxt_dexta_walk": (_LL, [_P, _LL, _LL, _I, _LL, _P, _P, _P, _P, _P, _P, _P]),
+}
+
 _LIBS: dict = {}
 
 
@@ -94,3 +108,15 @@ def qv_encode_shim():
     """The host-side channel encoder and ragged copies (raises OSError
     when it cannot build)."""
     return _shim("qv_encode", _ENCODE)
+
+
+def twobit_host_shim():
+    """Host 2-bit pack, wrapped-text unpack and sequence-file line scan
+    (raises OSError when it cannot build)."""
+    return _shim("twobit_host", _TWOBIT)
+
+
+def dexta_index_shim():
+    """The .dexta/.dexar entry walker (raises OSError when it cannot
+    build)."""
+    return _shim("dexta_index", _DEXTA)

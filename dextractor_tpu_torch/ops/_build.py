@@ -41,6 +41,8 @@ ARGTYPES = {
     "dxt_decode_run": [_P, _LL, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P,
                        _P, _I, _LL, _P],
     "dxt_expand_runs": [_P, _P, _LL, _I, _P, _LL, _P, _P, _I, _LL, _P],
+    "dxt_pack2bit": [_P, _P, _P, _P, _P, _LL, _P],
+    "dxt_unpack2bit": [_P, _P, _P, _P, _P, _LL, _P],
 }
 
 

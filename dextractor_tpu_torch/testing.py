@@ -1,14 +1,23 @@
 """Synthetic inputs for tests and ``chip_smoke.py``, without JAX.
 
-``make_quiva`` is a copy of ``tests/conftest.py::make_quiva`` (which cannot
-be imported where JAX is absent: that conftest imports it) and gives the
-same bytes for the same generator state.  ``lognormal_lengths`` is
+``make_quiva``, ``make_fasta`` and ``make_arrow`` are copies of
+``tests/conftest.py``'s (which cannot be imported where JAX is absent: that
+conftest imports it) and give the same bytes for the same generator state;
+``make_fasta`` also takes explicit read lengths.  ``uniform_fasta``,
+``long_fasta`` and ``uniform_arrow`` are the 2-bit codecs' corpora of
+``chip_smoke.py``.  ``lognormal_lengths`` is
 ``bench.py::lognormal_lengths``.  ``step_batch`` builds the arguments of
 ``qv_encode_step`` for a .quiva image the way ``bench.py`` and
 ``__graft_entry__._example_batch`` do, ``decode_batch`` those of
 ``ops.decode2.decode_entry_batch2`` for a .dexqv image the way
 ``bench.py::_qv_dec_setup`` does.  ``decode_edge_cases`` builds edge rows of
 the decode kernels with the port's own encode twins.
+
+No weights or parameters are carried over from the JAX package: the
+``.dexqv`` tables are built from each file's data (tests convert the JAX
+package's with ``formats.dexqv.coding_from_reference``), and the 2-bit
+tables are constants copied byte for byte into ``ops/twobit.py``, each held
+to its original by ``tests/test_torch_twobit_kernels.py``.
 """
 
 from __future__ import annotations
@@ -61,6 +70,67 @@ def make_quiva(rng, n_reads=12, min_len=0, max_len=400, movie=b"m130205_1210_42"
         for stream in (delqv, tag, ins, mrg, sub):
             lines.append(stream.tobytes())
     return b"\n".join(lines) + b"\n"
+
+
+def make_fasta(rng, n_reads=20, min_len=0, max_len=700, movie=b"m130205_1210_42", width=80,
+               with_rq=True, well_jumps=False, lengths=None):
+    """A synthetic PacBio-style .fasta image.  ``lengths`` overrides the
+    uniform [min_len, max_len] draw with explicit per-read lengths."""
+    lines = []
+    well = 0
+    if lengths is not None:
+        n_reads = len(lengths)
+    for i in range(n_reads):
+        well += int(rng.integers(0, 600 if well_jumps else 3))
+        rlen = (int(lengths[i]) if lengths is not None
+                else int(rng.integers(min_len, max_len + 1)))
+        beg = int(rng.integers(0, 100))
+        end = beg + rlen
+        qv = int(rng.integers(0, 1000))
+        hdr = f">{movie.decode()}/{well}/{beg}_{end}"
+        if with_rq:
+            hdr += f" RQ=0.{qv}"
+        lines.append(hdr.encode())
+        seq = rng.choice(np.frombuffer(b"acgt", np.uint8), size=rlen)
+        for j in range(0, rlen, width):
+            lines.append(seq[j:j + width].tobytes())
+    return b"\n".join(lines) + b"\n"
+
+
+def make_arrow(rng, n_reads=20, min_len=0, max_len=700, movie=b"m130205_1210_42", width=80):
+    """A synthetic PacBio-style .arrow image."""
+    lines = []
+    well = 0
+    for i in range(n_reads):
+        well += int(rng.integers(0, 3))
+        rlen = int(rng.integers(min_len, max_len + 1))
+        beg = int(rng.integers(0, 100))
+        end = beg + rlen
+        snr = rng.uniform(0.5, 120.0, size=4)
+        hdr = (f">{movie.decode()}/{well}/{beg}_{end} "
+               f"SN={snr[0]:.2f},{snr[1]:.2f},{snr[2]:.2f},{snr[3]:.2f}")
+        lines.append(hdr.encode())
+        seq = rng.choice(np.frombuffer(b"1234", np.uint8), size=rlen)
+        for j in range(0, rlen, width):
+            lines.append(seq[j:j + width].tobytes())
+    return b"\n".join(lines) + b"\n"
+
+
+def uniform_fasta(n_reads: int = 32_000) -> bytes:
+    """32,000 reads of 1,950-2,050 bases, seed 0: ~64 M bases, ~66 MB of text."""
+    return make_fasta(np.random.default_rng(0), n_reads=n_reads,
+                      min_len=UNIFORM_READ_LEN - 50, max_len=UNIFORM_READ_LEN + 50)
+
+
+def long_fasta(mb: int = 64) -> bytes:
+    """Long reads of ``lognormal_lengths(mb)`` (1,500-60,000 bases), seed 2."""
+    return make_fasta(np.random.default_rng(2), lengths=lognormal_lengths(mb))
+
+
+def uniform_arrow(n_reads: int = 8_000) -> bytes:
+    """8,000 reads of 1,950-2,050 pulse-width symbols, seed 0."""
+    return make_arrow(np.random.default_rng(0), n_reads=n_reads,
+                      min_len=UNIFORM_READ_LEN - 50, max_len=UNIFORM_READ_LEN + 50)
 
 
 def lognormal_lengths(mb: int = BENCH_MB) -> np.ndarray:

@@ -1,23 +1,29 @@
 """CLI argument handling with the reference's single-letter flag semantics.
 
-The reference parses flags with the ARG_INIT/ARG_FLAGS macro family
-(reference DB.h:79-123): boolean single-letter flags may be ganged ("-vk").
-The port's own copy of ``dextractor_tpu/utils/args.py``, cut to the boolean
-flags that the ported tools take.
+The reference parses flags with the ARG_INIT/ARG_FLAGS/ARG_NON_NEGATIVE
+macro family (reference DB.h:79-123): boolean single-letter flags may be
+ganged ("-vk"), an integer option takes its value right after the letter
+("-w80").  The port's own copy of ``dextractor_tpu/utils/args.py``, cut to
+the boolean flags and integer options that the ported tools take.
 """
 
 from __future__ import annotations
 
 import sys
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass
 class ArgSpec:
     prog: str
     usage: str
-    flags: str = ""              # ganged boolean flag letters, e.g. "vkl"
+    flags: str = ""              # ganged boolean flag letters, e.g. "vki"
+    int_opts: dict = field(default_factory=dict)    # letter -> (name, default, min)
     help_lines: tuple = ()
+
+
+class ArgError(SystemExit):
+    """A malformed option value: exits 1 after its message."""
 
 
 def usage_exit(spec: ArgSpec) -> None:
@@ -30,11 +36,27 @@ def usage_exit(spec: ArgSpec) -> None:
 
 
 def parse_flags(spec: ArgSpec, argv: list[str]):
-    """Return (flags: dict[letter, bool], positional)."""
+    """Return (flags: dict[letter, bool], opts: dict[letter, int], positional)."""
     flags = {c: False for c in spec.flags}
+    opts = {letter: default for letter, (_, default, _) in spec.int_opts.items()}
     positional = []
     for arg in argv:
         if arg.startswith("-") and len(arg) > 1:
+            c = arg[1]
+            if c in spec.int_opts:
+                name, _, minv = spec.int_opts[c]
+                try:
+                    v = int(arg[2:])
+                except ValueError:
+                    sys.stderr.write(f"{spec.prog}: -{c} '{arg[2:]}' argument is not "
+                                     "an integer\n")
+                    raise ArgError(1)
+                if v < minv:
+                    kind = "positive" if minv > 0 else "non-negative"
+                    sys.stderr.write(f"{spec.prog}: {name} must be {kind}\n")
+                    raise ArgError(1)
+                opts[c] = v
+                continue
             for ch in arg[1:]:
                 if ch not in flags:
                     sys.stderr.write(f"{spec.prog}: -{ch} is an illegal option\n")
@@ -42,4 +64,4 @@ def parse_flags(spec: ArgSpec, argv: list[str]):
                 flags[ch] = True
         else:
             positional.append(arg)
-    return flags, positional
+    return flags, opts, positional

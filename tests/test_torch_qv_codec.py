@@ -86,11 +86,13 @@ def test_cli_dexqv(corpora, tmp_path):
 
 def test_port_imports_no_jax(tmp_path):
     """In a fresh interpreter: import every module of the port and
-    chip_smoke, encode and decode on the CPU, run the CLI, and rehearse
+    chip_smoke, encode and decode (.dexqv and .dexta) on the CPU, run the
+    CLI (dexqv, dexta, undexta), and rehearse
     every phase of chip_smoke on the CPU at the smallest sizes that reach
     each branch (the wrappers run their twins there; tests/test_torch_decode_*
     cover the decode at larger sizes).  Neither jax nor the JAX package may be imported."""
     path = str(tmp_path / "a.quiva")
+    fpath, dpath = str(tmp_path / "g.fasta"), str(tmp_path / "g.dexta")
     code = f"""
 import importlib, pkgutil, sys
 import numpy as np
@@ -121,6 +123,18 @@ chip_smoke.phase_encode_step("cpu", small)
 chip_smoke.phase_decode_kernels("cpu", encoded, long_len=600, row_len=300)
 chip_smoke.phase_decode_slice("cpu", encoded)
 chip_smoke.phase_decode_step("cpu", encoded[0][3])
+from dextractor_tpu_torch.codecs.twobit_codec import decode_dexta_to_fasta, encode_fasta_to_dexta
+from dextractor_tpu_torch.testing import make_arrow, make_fasta
+fa = make_fasta(np.random.default_rng(0), n_reads=30, min_len=0, max_len=500)
+assert decode_dexta_to_fasta(encode_fasta_to_dexta(fa, device="cpu"), device=False) == fa
+open({fpath!r}, "wb").write(fa)
+assert main(["dexta", "-k", {fpath!r}]) == 0
+assert main(["undexta", "-v", "-w60", {dpath!r}]) == 0
+chip_smoke.phase_twobit_kernels("cpu", fa, long_len=600)
+chip_smoke.phase_twobit_slice("cpu", [
+    ("uniform_fasta", fa, False),
+    ("long_fasta", make_fasta(np.random.default_rng(2), lengths=[2100, 0, 700]), False),
+    ("uniform_arrow", make_arrow(np.random.default_rng(0), n_reads=20), True)])
 print(sorted(m for m in sys.modules if m in ("jax", "dextractor_tpu")
              or m.startswith(("jax.", "dextractor_tpu."))))
 """
@@ -130,6 +144,7 @@ print(sorted(m for m in sys.modules if m in ("jax", "dextractor_tpu")
     assert r.stdout.strip().splitlines()[-1] == "[]"
     assert "encode+assemble" in r.stderr          # the -v stage table
     assert "[decode] long_reads" in r.stdout
+    assert "[2-bit] uniform_arrow" in r.stdout
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(sub_heavy=True, del_run=False),
