@@ -15,13 +15,21 @@ Phases, each printing one line (or a few) before the final JSON lines:
    source, all at once, and the native C shims with gcc, timed;
 3. encode kernels: K1 (encode_plain), K2 (encode_run) and K3 (pack_tags) on
    the card against their plain PyTorch twins, bit for bit, at the shapes of
-   the 16 MB uniform batch and on rows of up to 70,000 symbols;
+   the 16 MB uniform batch and on rows of up to 70,000 symbols; K9
+   (lut_gather) and K8 (pack_words) on what the encode step's emission
+   route gives them at the widest bucket of the long-read batch (61,440
+   symbols, 122,881 slots on the RLE channel) and on edge rows (0 slots,
+   all-zero widths, 32-bit emissions that straddle words, type-2 and run
+   escapes from 70,000-symbol rows, every u8 and run index 0-255);
 4. encode slice: encode_quiva_to_dexqv(device=True) on four corpora (the
    uniform batch, a sub-heavy corpus, the same lossy, the log-normal
    long-read batch), each byte for byte against the native C encoder
-   (device=False); every encode kernel launched in this phase, no twin;
+   (device=False); every bucket takes the route that emit.fused_ok gives
+   its width (the uniform batch K1-K3 only); every encode kernel launched
+   in this phase, no twin;
 5. encode step: median stream time of qv_encode_step on the uniform batch,
-   and the share of it the card was busy;
+   and the share of it the card was busy; the stream time of the widest
+   long-read bucket's four QV channels through each route (K1/K2, K9/K8);
 6. decode kernels: K4 (decode_plain: ins, mrg, sub in one launch, and one
    channel), K5 (decode_run) on delQV and K6 (expand_runs) with the delTag
    codes on delQV at the uniform batch's decode shapes, K5 and K6 on subQV
@@ -29,10 +37,12 @@ Phases, each printing one line (or a few) before the final JSON lines:
    testing.decode_edge_cases, each against its twin bit for bit;
 7. decode slice: decode_dexqv_to_quiva(device=True) on the four encoded
    corpora against the original .quiva and the native walker
-   (device=False); every decode kernel launched in this phase, no twin;
+   (device=False), through the segmented route (the default: every corpus
+   has reads over 2,048 symbols) and through the per-read route
+   (DXT_SEG_DECODE=0); every decode kernel launched on each, no twin;
 8. decode step: median stream time and busy share of decode_entry_batch2
    on the uniform batch as one rectangle; then the device time of each
-   decode kernel over one decode of the long-read batch.
+   decode kernel over one decode of the long-read batch on each route.
 9. 2-bit kernels: K7 (pack2bit) and the unpack (unpack2bit) against their
    twins, bit for bit, on the flat reads of the uniform .fasta (32,000
    reads of 1,950-2,050 bases) and on edge reads (lengths 0-7, a
@@ -59,6 +69,7 @@ It exits 1 at once when torch.cuda.is_available() is False.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -77,6 +88,9 @@ KERNELS = {   # wrapper name -> (source, the TPU kernel it replaces)
     "encode_plain": (EMIT, "dextractor_tpu/ops/emit_pallas.py:623"),
     "encode_run": (EMIT, "dextractor_tpu/ops/emit_pallas.py:662"),
     "pack_tags": (EMIT, "dextractor_tpu/ops/emit_pallas.py:551"),
+    "lut_gather": (EMIT, "dextractor_tpu/ops/lut_pallas.py:56 (K9), "
+                         "dextractor_tpu/ops/lut_pallas.py:87 (K9b)"),
+    "pack_words": (EMIT, "dextractor_tpu/ops/pack_pallas.py:99"),
     "decode_plain": (DECODE, "dextractor_tpu/ops/decode_conveyor.py:612 (K4a), "
                              "dextractor_tpu/ops/decode_conveyor.py:986 (K4b)"),
     "decode_run": (DECODE, "dextractor_tpu/ops/decode_conveyor.py:1059"),
@@ -85,7 +99,7 @@ KERNELS = {   # wrapper name -> (source, the TPU kernel it replaces)
     "unpack2bit": (TWOBIT, "none (no pallas_call): the JAX package's unpack is "
                            "dextractor_tpu/ops/twobit.py:157 unpack_translate, XLA"),
 }
-ENCODE_KERNELS = ("encode_plain", "encode_run", "pack_tags")
+ENCODE_KERNELS = ("encode_plain", "encode_run", "pack_tags", "lut_gather", "pack_words")
 DECODE_KERNELS = ("decode_plain", "decode_run", "expand_runs")
 TWOBIT_KERNELS = ("pack2bit", "unpack2bit")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, published (NVIDIA data sheet)
@@ -332,10 +346,59 @@ def concentrated_luts():
     return bt.scheme_luts(scheme)
 
 
-def phase_encode_kernels(device, uniform: bytes, wide_len: int = 70_000):
+def route_inputs(fn):
+    """The arguments that fn() gives the wrappers of K9 (lut_gather) and K8
+    (pack_words), recorded while the twins stand in for the wrappers (no
+    kernel launches): {"lut_gather": [(data, lut)], "pack_words": [(v, n)]}."""
+    from dextractor_tpu_torch.ops import lut
+
+    seen = {"lut_gather": [], "pack_words": []}
+    saved = lut.lut_gather, lut.pack_words
+
+    def recorder(name, twin):
+        def call(*args):
+            seen[name].append(args)
+            return twin(*args)
+        return call
+
+    lut.lut_gather = recorder("lut_gather", lut.lut_gather_ref)
+    lut.pack_words = recorder("pack_words", lut.pack_words_ref)
+    try:
+        fn()
+    finally:
+        lut.lut_gather, lut.pack_words = saved
+    return seen
+
+
+def emission_edges(dev, wide_len: int):
+    """Edge inputs of K9 and K8 on ``dev``: every u8 and every run index
+    0-255 as int32, also as views one element into their buffers (too
+    unaligned for K9's vector loads); 0 slots, all-zero widths, and 32-bit
+    emissions of which all but the first straddle words."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(13)
+    idx = torch.arange(257, dtype=torch.int32, device=dev) % 256
+    lut_in = [idx[:256].to(torch.uint8), idx[:256].reshape(16, 16),
+              idx.to(torch.uint8)[1:], idx[1:]]
+    wide = np.full((3, wide_len), 32, np.int32)
+    wide[:, 0] = 3
+    v = rng.integers(0, 1 << 32, wide.shape, dtype=np.uint64)
+    v[:, 0] &= 7
+    pack_in = [(torch.zeros((3, 0), dtype=torch.int32, device=dev),) * 2,
+               (torch.zeros((4, 1000), dtype=torch.int32, device=dev),) * 2,
+               (torch.from_numpy(v.astype(np.uint32).view(np.int32)).to(dev),
+                torch.from_numpy(wide).to(dev))]
+    return lut_in, pack_in
+
+
+def phase_encode_kernels(device, uniform: bytes, long: bytes, wide_len: int = 70_000):
     """K1-K3 against their twins on ``device``, at the uniform batch's
-    shapes and on ``wide_rows(wide_len)``; on the card also their times
-    (see ``measure``).  Returns {kernel: {max_abs_err, times...}}."""
+    shapes and on ``wide_rows(wide_len)``; K9 and K8 on the inputs that the
+    emission route gives them at the widest bucket of ``long`` and on edge
+    rows (``wide_rows``' emissions, ``emission_edges``); on the card also
+    their times (see ``measure``).  Returns {kernel: {max_abs_err, times...}}."""
     import torch
     from dextractor_tpu_torch.ops import bitstream_torch as bt
     from dextractor_tpu_torch.ops import emit
@@ -401,17 +464,83 @@ def phase_encode_kernels(device, uniform: bytes, wide_len: int = 70_000):
     runs = "runs > 255 and > 65,535" if wide_len > 65_535 else "runs > 255"
     log(f"[kernel] wide rows {tuple(d.shape)} ({runs}, type-2 escapes): K1, K2, K3 "
         "bit-identical to their twins")
+
+    # K9 and K8 on what the emission route gives them at the widest bucket
+    from dextractor_tpu_torch.ops import lut
+    from dextractor_tpu_torch.parallel import pipeline
+    from dextractor_tpu_torch.testing import widest_bucket_batch
+
+    (streams, lengths, sym, run, rchars, _), run_on = widest_bucket_batch(long)
+    step_in = [torch.from_numpy(a).to(dev) for a in (streams, lengths, sym, run, rchars)]
+    seen = route_inputs(lambda: pipeline.channels_emissions(*step_in, run_on))
+    twins = {"lut_gather": lut.lut_gather_ref, "pack_words": lut.pack_words_ref}
+    for name in ("lut_gather", "pack_words"):
+        kern = getattr(lut, name)
+        res[name] = {"max_abs_err": max(_check_same(name, (kern(*a),), (twins[name](*a),))
+                                        for a in seen[name])}
+    shapes = {k: [tuple(a[0].shape) for a in v] for k, v in seen.items()}
+    log(f"[kernel] lut_gather on {shapes['lut_gather']} and pack_words on "
+        f"{shapes['pack_words']} (the emission route at the widest long-read bucket, "
+        f"streams {tuple(streams.shape)}, run_on {run_on}) bit-identical to their twins")
+    if on_card(dev):
+        g = next(a for a in seen["lut_gather"] if a[0].dtype == torch.uint8)
+        n_el = g[0].numel()
+        idx = g[0].long()
+        res["lut_gather"].update(measure(
+            "lut_gather", lambda: lut.lut_gather(*g), lambda: twins["lut_gather"](*g),
+            5 * n_el + 1024, library=lambda: torch.take(g[1], idx)))
+        pw = max(seen["pack_words"], key=lambda a: a[0].shape[1])
+        rows, m = pw[0].shape
+        res["pack_words"].update(measure(
+            "pack_words", lambda: lut.pack_words(*pw), lambda: twins["pack_words"](*pw),
+            8 * rows * m + 4 * rows * (m + 1)))
+
+    def wide_emissions():
+        v, n, _, _ = bt.plain_emissions(dd, wld, conc[0], gather=lut.lut_gather)
+        bt.pack_words_any(v, n)
+        v, n, _, _ = bt.run_emissions(dd, wld, rch[0].long(), sym_d[0], run_d[0],
+                                      gather=lut.lut_gather)
+        bt.pack_words_any(v, n)
+
+    edges = route_inputs(wide_emissions)
+    lut_in, pack_in = emission_edges(dev, wide_len)
+    edges["lut_gather"] += [(x, conc[0]) for x in lut_in]
+    edges["pack_words"] += pack_in
+    for name in ("lut_gather", "pack_words"):
+        kern = getattr(lut, name)
+        res[name]["max_abs_err"] = max([res[name]["max_abs_err"]] + [
+            _check_same(name, (kern(*a),), (twins[name](*a),)) for a in edges[name]])
+    log(f"[kernel] emission edges: lut_gather on every u8 and run index 0-255 and on "
+        f"the lookups of wide rows {tuple(d.shape)} ({runs}, type-2 escapes), pack_words "
+        f"on their emissions ({[tuple(a[0].shape) for a in edges['pack_words']]}: 0 slots, "
+        "all-zero widths, straddling 32-bit emissions) bit-identical to their twins")
     return res
 
 
-def corpora(uniform: bytes):
+def corpora(uniform: bytes, long: bytes):
     import numpy as np
-    from dextractor_tpu_torch.testing import long_quiva, make_quiva
+    from dextractor_tpu_torch.testing import make_quiva
 
     sub_heavy = make_quiva(np.random.default_rng(7), n_reads=120,
                            min_len=1900, max_len=2100, sub_heavy=True)
     return [("uniform", uniform, False), ("sub_heavy", sub_heavy, False),
-            ("sub_heavy_lossy", sub_heavy, True), ("long_reads", long_quiva(), False)]
+            ("sub_heavy_lossy", sub_heavy, True), ("long_reads", long, False)]
+
+
+def route_counts(q, coding):
+    """The kernel calls that encoding .quiva ``q`` with ``coding`` on the
+    device must make when every bucket takes the route ``fused_ok`` gives
+    its width: {kernel: calls}, and the numbers of buckets per route."""
+    from dextractor_tpu_torch.codecs.qv_codec import encode_buckets, step_tables
+    from dextractor_tpu_torch.ops.emit import fused_ok
+
+    widths = [w for w, _ in encode_buckets(q.lengths)]
+    n_fused = sum(map(fused_ok, widths))
+    n_em = len(widths) - n_fused
+    n_run = sum(step_tables(coding)[4])
+    return {"encode_plain": n_fused, "encode_run": n_fused if n_run else 0,
+            "pack_tags": len(widths), "lut_gather": n_em * (4 + n_run),
+            "pack_words": n_em * (1 + (n_run > 0))}, n_fused, n_em
 
 
 def _stage_line():
@@ -437,6 +566,7 @@ def phase_encode_slice(device, cases):
     from dextractor_tpu_torch.utils.profiling import REPORTER
 
     encoded = []
+    card = dispatch.resolve_device(device).type == "cuda"
     dispatch.reset_counts()
     for name, data, lossy in cases:
         q = qv.parse_quiva(data)
@@ -444,6 +574,10 @@ def phase_encode_slice(device, cases):
         if name.startswith("sub_heavy") and (coding.drun_scheme is None
                                              or coding.srun_scheme is None):
             raise AssertionError(f"{name}: delQV and subQV must both be RLE")
+        expect, n_fused, n_em = route_counts(q, coding)
+        if name == "uniform" and n_em:
+            raise AssertionError("the uniform batch must encode through K1-K3 only")
+        before = dict(dispatch.LAUNCHES if card else dispatch.TWIN_CALLS)
         REPORTER.stages.clear()
         REPORTER.enabled = True
         t0 = time.perf_counter()
@@ -454,20 +588,47 @@ def phase_encode_slice(device, cases):
         t2 = time.perf_counter()
         if got != ref:
             raise AssertionError(f"{name}: device bytes differ from the native encoder")
+        after = dispatch.LAUNCHES if card else dispatch.TWIN_CALLS
+        calls = {k: after[k] - before[k] for k in expect}
+        if calls != expect:
+            raise AssertionError(f"{name}: kernel calls {calls}, the routes of its "
+                                 f"buckets by fused_ok give {expect}")
         encoded.append((name, data, lossy, got))
         log(f"[encode] {name}: {q.n_entries} reads, {int(q.lengths.sum())} "
             f"symbols/channel, max read {int(q.lengths.max())}, "
-            f"{len(got)} bytes identical to native; device {t1 - t0:.3f} s, "
+            f"{len(got)} bytes identical to native; {n_fused} buckets through K1/K2, "
+            f"{n_em} through K9/K8, kernel calls {calls}; device {t1 - t0:.3f} s, "
             f"native {t2 - t1:.3f} s (host clock); device stages (s): {_stage_line()}")
     launches, twins = _counts()
     log(f"[encode] launches {launches} twin calls {twins}")
     return launches, twins, encoded
 
 
-def phase_encode_step(device, uniform: bytes):
+def phase_encode_step(device, uniform: bytes, long: bytes):
     import torch
+    from dextractor_tpu_torch.parallel import pipeline
     from dextractor_tpu_torch.parallel.pipeline import qv_encode_step
-    from dextractor_tpu_torch.testing import step_batch
+    from dextractor_tpu_torch.testing import step_batch, widest_bucket_batch
+
+    # the widest long-read bucket through both routes: the same words
+    (streams, lengths, sym, run, rchars, _), run_on = widest_bucket_batch(long)
+    w_in = [torch.from_numpy(a).to(device) for a in (streams, lengths, sym, run, rchars)]
+    routes = {"K1/K2": pipeline.channels_fused, "K9/K8": pipeline.channels_emissions}
+    outs = {k: fn(*w_in, run_on) for k, fn in routes.items()}
+    (wf, tf, lf), (we, te, le) = outs.values()
+    raw = (tf.long() + 31) >> 5
+    if (wf.shape != we.shape or not torch.equal(tf, te) or not torch.equal(lf, le)
+            or not torch.equal(_masked(wf, raw), _masked(we, raw))):
+        raise AssertionError("the two encode routes disagree on the widest long-read bucket")
+    if on_card(device):
+        payload = 4 * int(lengths.sum())
+        for k, fn in routes.items():
+            ms = cuda_ms(lambda: fn(*w_in, run_on), reps=5, rounds=5)
+            busy, n_ops = device_ms(lambda: fn(*w_in, run_on), reps=5)
+            log(f"[encode step] widest long-read bucket, streams {tuple(streams.shape)}, "
+                f"run_on {run_on}, four QV channels through {k}: {ms} ms median (CUDA "
+                f"events), {payload / ms / 1e6} GB/s of {payload} payload bytes; device "
+                f"busy {busy} ms in {n_ops} device ops (profiler)")
 
     args, run_on = step_batch(uniform)
     dargs = [torch.from_numpy(a).to(device) for a in args]
@@ -621,34 +782,73 @@ def phase_decode_kernels(device, encoded, long_len: int = 70_000, row_len: int =
     return res
 
 
-def phase_decode_slice(device, encoded):
+@contextlib.contextmanager
+def decode_route(segmented: bool):
+    """Within the block, decode_dexqv_to_quiva takes the segmented route (the
+    default) or the per-read route (DXT_SEG_DECODE=0); yields {route: calls
+    of its batch decode}."""
+    from dextractor_tpu_torch.codecs import qv_batch
+
+    calls = {"segmented": 0, "per_read": 0}
+    saved = (os.environ.get("DXT_SEG_DECODE"), qv_batch.fused_decode_entries_seg,
+             qv_batch.fused_decode_entries)
+
+    def counted(key, fn):
+        def call(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return call
+
+    os.environ["DXT_SEG_DECODE"] = "1" if segmented else "0"
+    qv_batch.fused_decode_entries_seg = counted("segmented", saved[1])
+    qv_batch.fused_decode_entries = counted("per_read", saved[2])
+    try:
+        yield calls
+    finally:
+        env, qv_batch.fused_decode_entries_seg, qv_batch.fused_decode_entries = saved
+        if env is None:
+            os.environ.pop("DXT_SEG_DECODE", None)
+        else:
+            os.environ["DXT_SEG_DECODE"] = env
+
+
+def phase_decode_slice(device, encoded, segmented: bool = True):
     """decode_dexqv_to_quiva on ``device`` against the original .quiva and
-    the native walker.  Returns (launch counts, twin calls)."""
-    from dextractor_tpu_torch.codecs.qv_codec import decode_dexqv_to_quiva
+    the native walker, through the segmented route (taken by a file with a
+    read over 2,048 symbols, as every corpus of the card's run has) or the
+    per-read route.  Returns (launch counts, twin calls)."""
+    from dextractor_tpu_torch.codecs.qv_codec import SEG_DECODE, decode_dexqv_to_quiva
+    from dextractor_tpu_torch.formats.quiva import parse_quiva
     from dextractor_tpu_torch.testing import lossy_quiva
     from dextractor_tpu_torch.utils import dispatch
     from dextractor_tpu_torch.utils.profiling import REPORTER
 
     dispatch.reset_counts()
     for name, data, lossy, enc in encoded:
+        long_read = int(parse_quiva(data).lengths.max(initial=0)) > SEG_DECODE
+        route = "segmented" if segmented and long_read else "per_read"
         REPORTER.stages.clear()
         REPORTER.enabled = True
-        t0 = time.perf_counter()
-        got = decode_dexqv_to_quiva(enc, device=device)
-        t1 = time.perf_counter()
+        with decode_route(segmented) as calls:
+            t0 = time.perf_counter()
+            got = decode_dexqv_to_quiva(enc, device=device)
+            t1 = time.perf_counter()
         REPORTER.enabled = False
+        if calls != {k: int(k == route) for k in calls}:
+            raise AssertionError(f"{name}: the {route} route was not taken: {calls}")
         ref = decode_dexqv_to_quiva(enc, device=False)
         t2 = time.perf_counter()
         want = lossy_quiva(data) if lossy else data
         if got != ref or got != want:
             raise AssertionError(f"{name}: decoded bytes differ from the "
                                  f"{'native walker' if got != ref else 'original'}")
-        log(f"[decode] {name}: {len(enc)} bytes -> {len(got)} bytes identical to the "
-            f"{'quantised ' if lossy else ''}original and to the native walker; "
-            f"device {t1 - t0:.3f} s, native {t2 - t1:.3f} s (host clock); "
+        log(f"[decode] {name} ({route} route): {len(enc)} bytes -> {len(got)} bytes "
+            f"identical to the {'quantised ' if lossy else ''}original and to the native "
+            f"walker; device {t1 - t0:.3f} s, native {t2 - t1:.3f} s (host clock); "
             f"device stages (s): {_stage_line()}")
     launches, twins = _counts()
-    log(f"[decode] launches {launches} twin calls {twins}")
+    log(f"[decode] {'segmented' if segmented else 'per-read'} route: launches "
+        f"{launches} twin calls {twins}")
     return launches, twins
 
 
@@ -678,32 +878,59 @@ def phase_decode_step(device, dexqv: bytes):
 
 def phase_decode_long(device, dexqv: bytes):
     """Device time of each decode kernel over one
-    decode_dexqv_to_quiva(device=True) of the long-read batch, where every
-    read is one chain per channel (profiler), and the host-clock time."""
+    decode_dexqv_to_quiva(device=True) of the long-read batch on the
+    segmented route and on the per-read route, where every read is one
+    chain per channel (profiler), and the host-clock time.
+
+    Traces of this decode have dropped kernel launches, the more often the
+    fewer launches a kernel has in it (the segmented route's one launch per
+    kernel came back missing in most traces).  So one trace holds two
+    decodes, and the device operations that start after the second one's
+    marker are its; a trace that holds fewer launches of a kernel than the
+    launch counters saw the second decode make is taken again, up to three
+    times, and the line says how many it holds."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     from dextractor_tpu_torch.codecs.qv_codec import decode_dexqv_to_quiva
+    from dextractor_tpu_torch.utils import dispatch
 
     if not on_card(device):
         return
-    decode_dexqv_to_quiva(dexqv, device=device)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        decode_dexqv_to_quiva(dexqv, device=device)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    parts = []
-    for name in DECODE_KERNELS:
-        k = [e for e in ev if f"{name}_kernel" in e.name]
-        parts.append(f"{name} {sum(e.time_range.elapsed_us() for e in k) / 1000} ms "
-                     f"in {len(k)} launches (longest "
-                     f"{max((e.time_range.elapsed_us() for e in k), default=0) / 1000} ms)")
-    busy = sum(e.time_range.elapsed_us() for e in ev) / 1000
-    log(f"[decode long] long-read batch, one chain per read and channel: device time "
-        f"(profiler) {'; '.join(parts)}; all device ops {busy} ms; host clock "
-        f"{wall:.3f} s with the profiler on")
+    for segmented in (True, False):
+        with decode_route(segmented):
+            for _ in range(3):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    decode_dexqv_to_quiva(dexqv, device=device)
+                    torch.cuda.synchronize()
+                    before = dict(dispatch.LAUNCHES)
+                    t0 = time.perf_counter()
+                    with record_function("second_decode"):
+                        decode_dexqv_to_quiva(dexqv, device=device)
+                        torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                launched = {k: dispatch.LAUNCHES[k] - before[k] for k in DECODE_KERNELS}
+                cuda = torch.autograd.DeviceType.CUDA
+                mark = min(e.time_range.start for e in prof.events()
+                           if e.name == "second_decode" and e.device_type != cuda)
+                # the marker's own span on the device timeline is no operation
+                ev = [e for e in prof.events() if e.device_type == cuda
+                      and e.name != "second_decode" and e.time_range.start >= mark]
+                traced = {k: [e.time_range.elapsed_us() / 1000 for e in ev
+                              if f"{k}_kernel" in e.name] for k in DECODE_KERNELS}
+                if all(len(traced[k]) == launched[k] for k in DECODE_KERNELS):
+                    break
+                log(f"[profiler] a trace of the long-read decode holds "
+                    f"{ {k: len(v) for k, v in traced.items()} } of its launches "
+                    f"{launched}; tracing again")
+        parts = [f"{k} {sum(traced[k])} ms in {len(traced[k])} of {launched[k]} launches "
+                 f"(longest {max(traced[k], default=0)} ms)" for k in DECODE_KERNELS]
+        busy = sum(e.time_range.elapsed_us() for e in ev) / 1000
+        route = ("segmented route, chains of at most 2,048 symbols" if segmented
+                 else "per-read route, one chain per read and channel")
+        log(f"[decode long] long-read batch, {route}: device time (profiler, the second "
+            f"of two decodes in one trace) {'; '.join(parts)}; all device ops {busy} ms; "
+            f"host clock {wall:.3f} s with the profiler on")
 
 
 def twobit_edge_reads(long_len: int = 70_000, seed: int = 17):
@@ -895,17 +1122,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    from dextractor_tpu_torch.testing import uniform_quiva
+    from dextractor_tpu_torch.testing import long_quiva, uniform_quiva
 
     t_start = time.perf_counter()
     phase_environment()
     phase_build()
-    uniform = uniform_quiva()
-    res = phase_encode_kernels("cuda", uniform)
-    launches, twins, encoded = phase_encode_slice(True, corpora(uniform))
+    uniform, long = uniform_quiva(), long_quiva()
+    res = phase_encode_kernels("cuda", uniform, long)
+    launches, twins, encoded = phase_encode_slice(True, corpora(uniform, long))
     _path_launches("encode", launches, twins, ENCODE_KERNELS)
-    phase_encode_step("cuda", uniform)
+    phase_encode_step("cuda", uniform, long)
     res.update(phase_decode_kernels("cuda", encoded))
+    p_launches, p_twins = phase_decode_slice(True, encoded, segmented=False)
+    _path_launches("decode (per-read route)", p_launches, p_twins, DECODE_KERNELS)
     d_launches, d_twins = phase_decode_slice(True, encoded)
     _path_launches("decode", d_launches, d_twins, DECODE_KERNELS)
     launches.update({k: d_launches[k] for k in DECODE_KERNELS})

@@ -6,7 +6,15 @@ native lens walk has given every entry's offset, its channel offsets and
 its run-token counts, the entries are N independent chains per channel.
 The host slices each channel into a word-aligned rectangle (memcpy speed)
 and ``ops/decode2.decode_entry_batch2`` decodes all five channels on the
-device.
+device (``fused_decode_entries``: every read one chain per channel).
+
+When a second lens walk has recorded checkpoints every ``seg`` symbols
+(``qv_codec._index_checkpoints``), every read decodes instead as chains of
+at most ``seg`` symbols, all live segments of all reads in one flat launch
+set (``build_seg_launch_flat``, ``fused_decode_entries_seg``,
+``ops/decode2.decode_entry_batch_seg``).  Not ported: the JAX module's
+bucketed segment layout (``DXT_SEG_FLAT=0``: ``seg_read_buckets``,
+``build_seg_launch``, ``_pad_seg_args``) and its ``mesh`` argument.
 """
 
 from __future__ import annotations
@@ -141,3 +149,140 @@ def fused_decode_entries(buf: np.ndarray, starts: np.ndarray,
         rows, ml = launch(sel)
         out[:, sel, :ml] = rows
     return out
+
+
+def build_seg_launch_flat(buf, starts, rlens, coffs, ntoks, coding, ck):
+    """The arguments of one flat segmented launch over every live segment of
+    every read (the JAX package's ``build_seg_launch_flat``): segment k of
+    read r is a row of its own, decoding ``seg_rlens`` <= seg symbols from
+    the read's checkpoint k (k >= 1; segment 0 starts at the stream's
+    start), its stream ending at checkpoint k+1 of the same read or at the
+    channel's end.  A read of length 0 keeps one row.
+
+    Returns (args, statics, rid, kseg).  args = (rect_del, tag_in,
+    rect_ins, rect_mrg, rect_sub, seg_rlens, pos0, carr) as numpy arrays:
+    (NS, K_c) u32 segment rectangles sliced at each checkpoint's word,
+    seg_rlens (NS,) i32, pos0 (4, NS) i32 bit offsets in [0, 32) of del,
+    ins, mrg, sub, carr (2, NS) i32 run carries of del and sub (-1: start
+    at a run code; >= 0: the checkpoint fell inside a run of that many
+    more rchars).  tag_in is (NS, TB) u8 packed 2-bit delTag codes, code k
+    of a row first in bits 7-6 of byte k >> 2: with delQV plain, the codes
+    from the segment's first symbol on; with delQV RLE, the codes from the
+    segment's first kept rank t0 on (the JAX package hands the same codes
+    unpacked, as (NS, max_tokens) i32), realigned here when t0 % 4 != 0.
+    statics holds decode_entry_batch_seg's keyword arguments seg (the row
+    width ``seg_w``), max_tokens, del_mode and sub_mode; rid and kseg (NS,)
+    map rows to (read, segment)."""
+    seg, ck_offs, ckb, ckt, ckc = ck
+    buf = np.asarray(buf, np.uint8)
+    starts = np.asarray(starts, np.int64)
+    coffs_a = np.asarray(coffs, np.int64)
+    ntoks_a = np.asarray(ntoks)
+    rl = np.asarray(rlens, np.int64)
+    cko = np.asarray(ck_offs, np.int64)
+    n = len(starts)
+    btot = ckb.shape[1]
+    segs_per = np.maximum(-(-rl // seg), 1)        # rl == 0 keeps one row
+    ns = int(segs_per.sum())
+    rid = np.repeat(np.arange(n), segs_per)
+    base = np.zeros(n, np.int64)
+    np.cumsum(segs_per[:-1], out=base[1:])
+    kseg = np.arange(ns) - np.repeat(base, segs_per)
+    live_ck = kseg >= 1                            # the row resumes mid-stream
+    cidx = np.clip(cko[rid] + kseg - 1, 0, max(btot - 1, 0))
+    seg_rlens = np.clip(rl[rid] - kseg * seg, 0, seg).astype(np.int32)
+    seg_w = int(min(seg, bucket_len(int(seg_rlens.max(initial=1)), 512)))
+    nxt_same = (kseg + 1) < segs_per[rid]          # the next row is the same read's
+
+    chan_beg = np.stack([np.zeros(n, np.int64), coffs_a[:, 1], coffs_a[:, 2],
+                         coffs_a[:, 3]])
+    chan_end = np.stack([coffs_a[:, 0], coffs_a[:, 2], coffs_a[:, 3], coffs_a[:, 4]])
+    rects, pos0 = [], []
+    for c in range(4):
+        bits = np.where(live_ck, ckb[c][cidx], 0).astype(np.int64)
+        sbyte = starts[rid] + chan_beg[c][rid] + (bits >> 5) * 4
+        bits_next = np.concatenate([bits[1:], np.zeros(1, np.int64)])
+        end_bits = np.where(nxt_same, bits_next, (chan_end[c] - chan_beg[c])[rid] * 8)
+        end_bits = np.maximum(end_bits, bits)
+        span_w = ((end_bits - (bits & ~np.int64(31))) + 31) // 32
+        kw = int(next_pow2(int(span_w.max(initial=1)) + 16))
+        rects.append(d2.build_entry_rect(buf, sbyte, kw))
+        pos0.append((bits & 31).astype(np.int32))
+    pos0 = np.stack(pos0)
+
+    del_run = coding.del_char >= 0
+    sub_run = coding.sub_char >= 0
+    carr = np.full((2, ns), -1, np.int32)
+    if del_run:
+        carr[0] = np.where(live_ck, ckc[0][cidx], -1)
+    if sub_run:
+        carr[1] = np.where(live_ck, ckc[1][cidx], -1)
+
+    t0d = np.where(live_ck, ckt[0][cidx], 0).astype(np.int64)
+    t0s = np.where(live_ck, ckt[1][cidx], 0).astype(np.int64)
+    spans = []
+    for t0, on, tk in ((t0d, del_run, 0), (t0s, sub_run, 1)):
+        if not on:
+            continue
+        t0_next = np.concatenate([t0[1:], np.zeros(1, np.int64)])
+        t1 = np.where(nxt_same, t0_next, ntoks_a[rid, tk])
+        spans.append(int(np.maximum(t1 - t0, 0).max(initial=1)) + 2)
+    max_tokens = bucket_len(max(spans, default=8), 16)
+
+    tag_base = (starts + coffs_a[:, 0])[rid]
+    last = max(len(buf) - 1, 0)
+    if del_run:
+        # code t0 + k at byte k >> 2 of the row: shift each byte pair left
+        # by the 2-bit slot of t0 within its byte
+        sh = (2 * (t0d & 3))[:, None]
+        b0 = tag_base + (t0d >> 2)
+        raw = buf[np.minimum(b0[:, None] + np.arange((max_tokens + 3) // 4 + 1),
+                             last)].astype(np.int64)
+        tag_in = (((raw[:, :-1] << sh) | (raw[:, 1:] >> (8 - sh))) & 0xFF).astype(np.uint8)
+    else:
+        tbw = max(seg_w // 4, 1)
+        bidx = tag_base[:, None] + (kseg * (seg // 4))[:, None] + np.arange(tbw)
+        tag_in = buf[np.minimum(bidx, last)]
+
+    args = (rects[0], tag_in, rects[1], rects[2], rects[3], seg_rlens, pos0, carr)
+    statics = dict(seg=seg_w, max_tokens=max_tokens,
+                   del_mode="run" if del_run else "plain",
+                   sub_mode="run" if sub_run else "plain")
+    return args, statics, rid, kseg
+
+
+def fused_decode_entries_seg(buf, starts, rlens, coffs, ntoks, coding, ck,
+                             device: torch.device):
+    """Checkpoint-segmented batch decode on ``device``: every read runs as
+    chains of at most ``seg`` symbols, all live segments in one flat launch
+    set (``build_seg_launch_flat``, ``decode2.decode_entry_batch_seg``);
+    the (5, NS, seg_w) segment rows are scattered to read rows by (read,
+    segment) on the device.  Returns (5, N, max_len) u8 host rows, max_len
+    the quarter-octave bucket of the longest read."""
+    rlens = np.asarray(rlens, np.int32)
+    n = len(starts)
+    gmax_len = bucket_len(int(rlens.max(initial=0)), 512)
+    sids, f1, f2, types, _, _, subw, lmax = decode_tables_v2(coding)
+    chan_l2 = tuple(bool(((f1[sids[k]] >> 20) & 1).any()) for k in range(6))
+    seg = ck[0]
+    with stage("rects"):
+        args, statics, rid, kseg = build_seg_launch_flat(buf, starts, rlens, coffs,
+                                                         ntoks, coding, ck)
+        d = [torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+             .to(device) for a in args]
+        f1_d = torch.from_numpy(f1).to(device)
+        f2_d = torch.from_numpy(f2).to(device)
+        rid_d = torch.from_numpy(rid).to(device)
+    with stage("step"):
+        rows = d2.decode_entry_batch_seg(
+            *d, sids, f1_d, f2_d, types, coding.del_char & 0xFF,
+            coding.sub_char & 0xFF, subw=subw, lmax=lmax, chan_l2=chan_l2, **statics)
+        out = torch.zeros((5, n, gmax_len), dtype=torch.uint8, device=device)
+        for k in np.unique(kseg):
+            m = torch.from_numpy(np.flatnonzero(kseg == k)).to(device)
+            w = min(rows.shape[2], gmax_len - int(k) * seg)
+            out[:, rid_d[m], int(k) * seg:int(k) * seg + w] = rows[:, m, :w]
+        if out.device.type == "cuda":
+            torch.cuda.synchronize(out.device)
+    with stage("D2H+flat"):
+        return out.cpu().numpy()

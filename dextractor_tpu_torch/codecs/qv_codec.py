@@ -6,16 +6,19 @@ delChar/subChar discovery, QV.c:895-918), the Huffman schemes are built
 once per file (QV.c:1029-1136), then every entry's five streams are
 encoded — by the native C channel encoder on the host (``device=False``)
 or as batched device steps (parallel/pipeline.qv_encode_step), one per
-quarter-octave row-length bucket.
+quarter-octave row-length bucket (``encode_buckets``).
 
 Decode (undexqv.c:101-208) parses the coding, then either walks every entry
 with the native sequential decoder on the host (``device=False``) or lets
 the native lens walk find the entries' channel offsets and decodes all of
-them as parallel chains on the device (codecs/qv_batch).
+them as parallel chains on the device (codecs/qv_batch); when a read
+crosses ``SEG_DECODE`` symbols, a second lens walk records checkpoints and
+the reads decode as chains of at most that many symbols.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from dataclasses import dataclass
 
@@ -24,7 +27,8 @@ import torch
 
 from ..formats import dexqv as dq
 from ..formats import quiva as qv
-from ..formats.ragged import bucket_len, bucket_rows, pad_rows, rows_to_flat
+from ..formats.ragged import (bucket_len, bucket_rows, pad_rows, padded_width,
+                              rows_to_flat)
 from ..native import qv_decode_shim, qv_encode_shim
 from ..ops import bitstream_torch as bt
 from ..ops import twobit as tb
@@ -299,43 +303,62 @@ def assemble_from_step(step_out, coding: dq.QVCoding, wells, begs, ends,
                              _step_parts(step_out, n))
 
 
+def encode_buckets(lengths: np.ndarray) -> list[tuple[int, np.ndarray]]:
+    """The device encode's buckets of entries: [(rectangle width, entry
+    indices)], one per quarter-octave row-length bucket
+    (formats/ragged.bucket_len), in order of width.  A rectangle is as wide
+    as the JAX package makes it: the bucket's longest read padded by
+    ``pad_rows(align=512, bucket=True)``, and at least the bucket's width;
+    so the step routes every bucket as the JAX package does
+    (``emit.fused_ok``: K1/K2 up to 8,192 symbols, K9/K8 past it)."""
+    lengths = np.asarray(lengths, np.int64)
+    kb = np.array([bucket_len(max(int(L), 1), 512) for L in lengths], np.int64)
+    out = []
+    for width in np.unique(kb):
+        sel = np.flatnonzero(kb == width)
+        out.append((max(padded_width(lengths[sel], 512, bucket=True), int(width)), sel))
+    return out
+
+
+def bucket_rect(q: qv.QuivaFile, sel: np.ndarray, width: int, lossy: bool):
+    """The five streams of entries ``sel`` as one (5, n_pad, width) u8
+    rectangle and their (n_pad,) i32 lengths, the rows padded to
+    ``bucket_rows``; lossy quantises insQV and mrgQV (QV.c:1049-1065)."""
+    off = np.zeros(q.n_entries + 1, np.int64)
+    np.cumsum(q.lengths, out=off[1:])
+    lens = q.lengths[sel].astype(np.int64)
+    idx = np.concatenate([np.arange(off[i], off[i + 1]) for i in sel])
+    flat = q.streams[:, idx]
+    if lossy:
+        flat[INS] &= 0xFE
+        flat[MRG] &= 0xFC
+    rect = np.zeros((5, bucket_rows(len(sel)), width), np.uint8)
+    for s in range(5):
+        rect[s, :len(sel)] = pad_rows(flat[s], lens, align=width)
+    lengths = np.zeros(rect.shape[1], np.int32)
+    lengths[:len(sel)] = lens
+    return rect, lengths
+
+
 def _encode_entries_device(q: qv.QuivaFile, coding: dq.QVCoding, lossy: bool,
                            device: torch.device) -> bytes:
-    """Encode all entries as batched device steps, one per quarter-octave
-    row-length bucket (formats/ragged.bucket_len; rows padded to
-    bucket_rows), so no row pads to the longest read's width; per-channel
-    outputs scatter back to entry order through the native ragged copy."""
+    """Encode all entries as batched device steps, one per bucket of
+    ``encode_buckets``, so no row pads to the longest read's width;
+    per-channel outputs scatter back to entry order through the native
+    ragged copy."""
     n = q.n_entries
-    real_lengths = q.lengths.astype(np.int64)
-    off = np.zeros(n + 1, np.int64)
-    np.cumsum(real_lengths, out=off[1:])
-    kb = np.array([bucket_len(max(int(L), 1), 512) for L in real_lengths],
-                  np.int64) if n else np.zeros(0, np.int64)
     sym, run, rchars, nlut, run_on = step_tables(coding)
     tables = [torch.as_tensor(x).to(device) for x in (sym, run, rchars, nlut)]
 
     chunks = [[] for _ in range(5)]
-    for width in np.unique(kb):
-        sel = np.flatnonzero(kb == width)
-        lens_b = real_lengths[sel]
-        n_b = len(sel)
-        n_pad = bucket_rows(n_b)
+    for width, sel in encode_buckets(q.lengths):
         with stage("device: rects"):
-            idx = np.concatenate([np.arange(off[i], off[i + 1]) for i in sel])
-            flat = q.streams[:, idx]
-            if lossy:
-                flat[INS] &= 0xFE
-                flat[MRG] &= 0xFC
-            rect = np.zeros((5, n_pad, int(width)), np.uint8)
-            for s in range(5):
-                rect[s, :n_b] = pad_rows(flat[s], lens_b, align=int(width))
-            lengths = np.zeros(n_pad, np.int32)
-            lengths[:n_b] = lens_b
+            rect, lengths = bucket_rect(q, sel, width, lossy)
         with stage("device: step+finalize"):
             step_out = qv_encode_step(torch.from_numpy(rect).to(device),
                                       torch.from_numpy(lengths).to(device),
                                       *tables, run_on=run_on)
-            for c, part in enumerate(_step_parts(step_out, n_b)):
+            for c, part in enumerate(_step_parts(step_out, len(sel))):
                 chunks[c].append((sel, *part))
 
     def entry_order(chs):
@@ -422,6 +445,43 @@ def _index_native(data: bytes, coding: dq.QVCoding, off: int, newv: bool):
             ntoks[: 2 * ne].reshape(ne, 2))
 
 
+SEG_DECODE = 2048
+
+
+def _index_checkpoints(data: bytes, coding: dq.QVCoding, off: int, newv: bool,
+                       elens: np.ndarray, seg: int = SEG_DECODE):
+    """Second lens-only native walk recording per-channel segment
+    checkpoints every ``seg`` symbols (bit offsets, run-literal ranks and
+    run carries), so that long reads decode as many short chains
+    (qv_batch.fused_decode_entries_seg).  ``elens`` are the entry lengths
+    of the first walk.  Returns (seg, ck_offs (ne+1,) i64, ckb (4, B) i32,
+    ckt (2, B) i32, ckc (2, B) i32), or None when no read crosses ``seg``."""
+    ne = len(elens)
+    nb = np.maximum((np.asarray(elens, np.int64) + seg - 1) // seg - 1, 0)
+    btot = int(nb.sum())
+    if btot == 0:
+        return None
+    ck_offs = np.zeros(ne + 1, np.int64)
+    np.cumsum(nb, out=ck_offs[1:])
+    ckb = np.zeros(4 * btot, np.int32)
+    ckt = np.zeros(2 * btot, np.int32)
+    ckc = np.full(2 * btot, -1, np.int32)
+    lib = qv_decode_shim()
+    lookups, lens, types, sid = _walk_tables(coding)
+    buf = np.frombuffer(data, np.uint8)
+    wells, begs, ends_, qvs = (np.zeros(ne, np.int32) for _ in range(4))
+    eoffs, elens2 = np.zeros(ne, np.int64), np.zeros(ne, np.int64)
+    ne2 = lib.dxt_qv_walk(
+        _ptr(buf), len(buf), off, _ptr(lookups), _ptr(lens), _ptr(types),
+        _ptr(sid), coding.del_char, coding.sub_char, int(newv), ne, 1 << 62,
+        _ptr(wells), _ptr(begs), _ptr(ends_), _ptr(qvs), _ptr(eoffs),
+        _ptr(elens2), None, 0, None, None,
+        seg, btot, _ptr(ck_offs), _ptr(ckb), _ptr(ckt), _ptr(ckc), None, 0)
+    if int(ne2) != ne:
+        raise FormatError("checkpoint walk entry-count mismatch")
+    return seg, ck_offs, ckb.reshape(4, btot), ckt.reshape(2, btot), ckc.reshape(2, btot)
+
+
 def _walk_native(data: bytes, coding: dq.QVCoding, off: int, newv: bool):
     """Decode all entries with the native sequential walker.  Returns
     (wells, begs, ends, qvs, lengths, streams (5, total) u8).
@@ -468,15 +528,28 @@ def _decode_entries_device(data: bytes, coding: dq.QVCoding, off: int,
                            newv: bool, device: torch.device):
     """Raw-container batch decode: the native lens walk resolves the entry
     chain (offsets only), then every entry's five streams decode as
-    independent chains on ``device`` (undexqv.c:101-208 output)."""
-    from .qv_batch import fused_decode_entries
+    independent chains on ``device`` (undexqv.c:101-208 output).  When a
+    read crosses SEG_DECODE symbols, a second lens walk records checkpoints
+    and every read decodes as chains of at most SEG_DECODE symbols
+    (qv_batch.fused_decode_entries_seg); otherwise, or with the environment
+    variable DXT_SEG_DECODE=0, every read is one chain per channel
+    (qv_batch.fused_decode_entries), as in the JAX package."""
+    from .qv_batch import fused_decode_entries, fused_decode_entries_seg
 
     with stage("index walk", len(data)):
         wells, begs, ends_, qvs, eoffs, elens, coffs, ntoks = _index_native(
             data, coding, off, newv)
-    rows = fused_decode_entries(np.frombuffer(data, np.uint8), eoffs,
-                                elens.astype(np.int32), coffs, ntoks, coding,
-                                device)
+    ck = None
+    if os.environ.get("DXT_SEG_DECODE", "1") == "1":
+        with stage("checkpoint walk", len(data)):
+            ck = _index_checkpoints(data, coding, off, newv, elens)
+    buf = np.frombuffer(data, np.uint8)
+    if ck is not None:
+        rows = fused_decode_entries_seg(buf, eoffs, elens.astype(np.int32), coffs,
+                                        ntoks, coding, ck, device)
+    else:
+        rows = fused_decode_entries(buf, eoffs, elens.astype(np.int32), coffs, ntoks,
+                                    coding, device)
     rlens = elens.astype(np.int64)
     with stage("D2H+flat"):
         streams = np.stack([rows_to_flat(rows[s], rlens) for s in range(5)])

@@ -52,6 +52,14 @@ def bucket_rows(n: int, floor: int = 8) -> int:
     return (n + gran - 1) // gran * gran
 
 
+def padded_width(lengths: np.ndarray, align: int = 512, bucket: bool = False) -> int:
+    """The width of ``pad_rows``' rectangle for rows of ``lengths``."""
+    lpad = _round_up(max(int(np.max(lengths, initial=0)), 1), align)
+    if bucket:
+        lpad = _round_up(lpad, max(align, (1 << (lpad.bit_length() - 1)) // 8))
+    return lpad
+
+
 def pad_rows(flat: np.ndarray, lengths: np.ndarray, align: int = 512,
              pad_value: int = 0, bucket: bool = False) -> np.ndarray:
     """Scatter flat ragged rows into an (N, Lpad) rectangle.
@@ -61,11 +69,7 @@ def pad_rows(flat: np.ndarray, lengths: np.ndarray, align: int = 512,
     at most ~12.5% dead columns.
     """
     n = len(lengths)
-    lpad = max(int(lengths.max(initial=0)), 1)
-    lpad = _round_up(lpad, align)
-    if bucket:
-        lpad = _round_up(lpad, max(align,
-                                   (1 << (lpad.bit_length() - 1)) // 8))
+    lpad = padded_width(lengths, align, bucket)
     out = np.full((n, lpad), pad_value, dtype=flat.dtype)
     total = int(lengths.sum())
     if total:

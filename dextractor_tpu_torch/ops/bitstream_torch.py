@@ -15,7 +15,11 @@ here a rectangle of streams (N, L) is encoded at once:
 
 ``encode_plain_ref`` and ``encode_run_ref`` compute exactly what the CUDA
 kernels K1 and K2 (ops/csrc/emit.cu) compute, with the same output shapes;
-the wrappers in ops/emit.py take them for tensors on the CPU.  All bit
+the wrappers in ops/emit.py take them for tensors on the CPU.  The emission
+route of the encode step (parallel/pipeline.py) runs steps 1-3 here with
+its table lookups through K9 (``gather=ops.lut.lut_gather``) and packs
+through K8 (``pack_words_any``); the twins keep the plain lookup
+``lut_gather_plain``, so that they launch no kernel.  All bit
 arithmetic is int64, because ``torch.uint32`` has no shifts or adds on the
 CPU; words are handed out as int32 tensors that hold u32 bit patterns.
 """
@@ -65,23 +69,29 @@ def _to_words(w64: torch.Tensor) -> torch.Tensor:
     return torch.where(w64 >= 1 << 31, w64 - (1 << 32), w64).to(torch.int32)
 
 
-def _unpack(lut: torch.Tensor, idx: torch.Tensor):
-    packed = lut.long()[idx]
+def lut_gather_plain(data, lut):
+    """``lut[data]`` as int32: the 256-entry lookup that K9 computes
+    (ops/lut.py), data uint8 or int32 in [0, 256)."""
+    return lut.long()[data.long()].to(torch.int32)
+
+
+def _unpack(packed):
+    packed = packed.long()
     return packed >> 6, (packed >> 1) & 31, (packed & 1) == 1
 
 
-def _sym_emissions(d, lut):
-    """(value, width, granular width of the last part) per symbol."""
-    bits, lens, esc = _unpack(lut, d)
-    v = torch.where(esc, (bits << 8) | d, bits)
+def _sym_emissions(data, lut, gather):
+    """(value, width, granular width of the last part) per u8 symbol."""
+    bits, lens, esc = _unpack(gather(data, lut))
+    v = torch.where(esc, (bits << 8) | data.long(), bits)
     n = torch.where(esc, lens + 8, lens)
     gran = torch.where(esc, 8, lens)
     return v, n, gran
 
 
-def _run_emission(run, lut):
+def _run_emission(run, lut, gather):
     """Run code of min(run, 255); an escape appends run & 0xFFFF."""
-    bits, lens, esc = _unpack(lut, run.clamp(max=255))
+    bits, lens, esc = _unpack(gather(run.clamp(max=255).to(torch.int32), lut))
     v = torch.where(esc, (bits << 16) | (run & 0xFFFF), bits)
     n = torch.where(esc, lens + 16, lens)
     gran = torch.where(esc, 16, lens)
@@ -103,11 +113,12 @@ def _at(x, idx):
     return x.gather(1, idx[:, None])[:, 0]
 
 
-def plain_emissions(data, lengths, luts):
-    """Emissions of a non-RLE stream rectangle (N, L): (v, n) of shape
-    (N, L) and (t, last_gran) of shape (N,), all int64."""
-    d, col, ln, valid = _row_setup(data, lengths)
-    v, n, gran = _sym_emissions(d, luts)
+def plain_emissions(data, lengths, luts, gather=lut_gather_plain):
+    """Emissions of a non-RLE stream rectangle (N, L) u8: (v, n) of shape
+    (N, L) and (t, last_gran) of shape (N,), all int64.  ``gather(data,
+    lut)`` does the table lookups."""
+    _, _, ln, valid = _row_setup(data, lengths)
+    v, n, gran = _sym_emissions(data, luts, gather)
     v = torch.where(valid, v, 0)
     n = torch.where(valid, n, 0)
     t = n.sum(1)
@@ -115,13 +126,15 @@ def plain_emissions(data, lengths, luts):
     return v, n, t, lg
 
 
-def run_emissions(data, lengths, rchar, sym_luts, run_luts):
-    """Emissions of an RLE stream rectangle (N, L).
+def run_emissions(data, lengths, rchar, sym_luts, run_luts, gather=lut_gather_plain):
+    """Emissions of an RLE stream rectangle (N, L) u8.
 
     Slots [2i, 2i+1] hold the run and the literal emission of position i
     (nonzero only where data[i] != rchar); slot 2L holds the trailing run.
     The run before each literal comes from a running max of literal
-    positions (bitstream_jax.py:126-130)."""
+    positions (bitstream_jax.py:126-130).  ``gather(data, lut)`` does the
+    lookups of the symbols and of the runs before the literals; the
+    trailing run's, one per row, is a plain lookup, as in the JAX package."""
     d, col, ln, valid = _row_setup(data, lengths)
     n_rows, l = d.shape
     is_lit = valid & (d != rchar)
@@ -133,16 +146,16 @@ def run_emissions(data, lengths, rchar, sym_luts, run_luts):
         run_max = lit_pos
         last_lit = torch.full((n_rows,), -1, dtype=torch.long, device=d.device)
     prev_lit = torch.cat([torch.full_like(run_max[:, :1], -1), run_max[:, :-1]], 1)
-    rv, rn, _ = _run_emission(col - prev_lit - 1, run_luts)
+    rv, rn, _ = _run_emission(col - prev_lit - 1, run_luts, gather)
     rv = torch.where(is_lit, rv, 0)
     rn = torch.where(is_lit, rn, 0)
-    sv, sn, sgran = _sym_emissions(d, sym_luts)
+    sv, sn, sgran = _sym_emissions(data, sym_luts, gather)
     sv = torch.where(is_lit, sv, 0)
     sn = torch.where(is_lit, sn, 0)
 
     trail = (ln - last_lit - 1).clamp(min=0)
     has_trail = trail > 0
-    tv, tn, tgran = _run_emission(trail, run_luts)
+    tv, tn, tgran = _run_emission(trail, run_luts, lut_gather_plain)
     tv = torch.where(has_trail, tv, 0)
     tn = torch.where(has_trail, tn, 0)
 
@@ -174,6 +187,16 @@ def pack_words(v, n, width: int):
         words.scatter_add_(1, w.clamp(max=width - 1), hi)
         words.scatter_add_(1, (w + 1).clamp(max=width - 1), lo)
     return _to_words(words)
+
+
+def pack_words_any(v, n):
+    """Emission planes (N, M) int64 -> words (N, M+1) int32 through K8
+    (ops/lut.pack_words): the kernel on CUDA, its twin on the CPU.  The
+    values are narrowed to u32 bit patterns in int32 only here, since
+    torch's ``>>`` on a negative int32 would sign-extend."""
+    from .lut import pack_words as k8
+
+    return k8(_to_words(v).contiguous(), n.to(torch.int32).contiguous())
 
 
 def word_counts(t, last_gran):

@@ -3,6 +3,23 @@
 //   dxt_encode_plain  K1, replaces dextractor_tpu/ops/emit_pallas.py::encode_plain_pallas
 //   dxt_encode_run    K2, replaces dextractor_tpu/ops/emit_pallas.py::encode_run_pallas
 //   dxt_pack_tags     K3, replaces dextractor_tpu/ops/emit_pallas.py::pack_tags_pallas
+//   dxt_pack_words    K8, replaces dextractor_tpu/ops/pack_pallas.py::pack_words_pallas
+//   dxt_lut_gather    K9 and K9b, replace dextractor_tpu/ops/lut_pallas.py::lut_gather_lane
+//                     and ::lut_gather_pallas (one function, two formulations)
+//
+// K8 and K9 serve the emission route of the encode step (buckets that
+// emit.fused_ok sends past K1/K2): K9 looks up every symbol and run length
+// in a 256-entry table, plain PyTorch builds the (value, width) emission
+// planes from the entries (bitstream_torch.plain_emissions /
+// run_emissions), and K8 packs the planes into words.  K9 is one pass over
+// the flat elements with the 1 KB table in shared memory, four indices a
+// thread and step; an index is masked to its low byte, so an input outside
+// the function's domain [0, 256) reads the table and not past it.  K8 is K1
+// without the table: the same block scan, shared word window and flush, on
+// the emission planes, and it writes every word of its (N, M+1) output,
+// zeros past a row's last bit.  Both are bound by bytes: K9 reads 1 (u8) or
+// 4 (int32) bytes and writes 4 per element, K8 reads 8 bytes a slot and
+// writes 4 a word.
 //
 // What they compute is the JAX package's XLA formulation, not its Pallas
 // bodies: bitstream_jax.plain_emissions / run_emissions + pack_words (the
@@ -315,6 +332,104 @@ pack_tags_kernel(const uint8_t* __restrict__ tags, const uint8_t* __restrict__ d
   for (long long b = ((carry + 3) >> 2) + threadIdx.x; b < wbytes; b += kThreads) dst[b] = 0;
 }
 
+// K8: emissions (v, n) of one row per block, MSB-first at bit offset
+// cumsum(n) - n (QV.c:404-422); n in [0, 32] and v < 2^n.  Every word of
+// the row is written: the packed ones, then zeros up to mw.
+__global__ void __launch_bounds__(kThreads)
+pack_words_kernel(const uint32_t* __restrict__ v, const int* __restrict__ n,
+                  uint32_t* __restrict__ words, long long m, long long mw) {
+  constexpr int kStage = kChunk + 2;  // <= 32 bits per slot, plus the carry word
+  __shared__ uint32_t s_stage[kStage];
+  __shared__ int s_warp[kWarps];
+
+  const long long row = blockIdx.x;
+  const uint32_t* vr = v + row * m;
+  const int* nr = n + row * m;
+  uint32_t* dst = words + row * mw;
+  for (int i = threadIdx.x; i < kStage; i += kThreads) s_stage[i] = 0u;
+  __syncthreads();
+
+  long long carry = 0;  // bits emitted by earlier chunks
+  for (long long c0 = 0; c0 < m; c0 += kChunk) {
+    uint32_t val[kItems];
+    int w[kItems];
+    int tot = 0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const long long col = c0 + threadIdx.x * kItems + k;
+      val[k] = col < m ? vr[col] : 0u;
+      w[k] = col < m ? nr[col] : 0;
+      tot += w[k];
+    }
+    int total;
+    int bit = static_cast<int>(carry & 31) + block_scan(tot, 0, SumOp(), s_warp, &total);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (w[k]) put_bits(s_stage, bit, val[k], w[k]);
+      bit += w[k];
+    }
+    const long long end = carry + total;
+    flush_words(s_stage, dst, carry, end);
+    carry = end;
+  }
+  if (threadIdx.x == 0 && (carry & 31)) dst[carry >> 5] = s_stage[0];
+  for (long long i = ((carry + 31) >> 5) + threadIdx.x; i < mw; i += kThreads) dst[i] = 0u;
+}
+
+__device__ __forceinline__ void load4(const uint8_t* p, long long q, int (&d)[4]) {
+  const uchar4 x = reinterpret_cast<const uchar4*>(p)[q];
+  d[0] = x.x; d[1] = x.y; d[2] = x.z; d[3] = x.w;
+}
+
+__device__ __forceinline__ void load4(const int* p, long long q, int (&d)[4]) {
+  const int4 x = reinterpret_cast<const int4*>(p)[q];
+  d[0] = x.x; d[1] = x.y; d[2] = x.z; d[3] = x.w;
+}
+
+// K9: out[i] = lut[data[i] & 255] over `count` flat elements.  kVec: the
+// pointers are aligned for 4-element loads and 16-byte stores.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+lut_gather_kernel(const T* __restrict__ data, const int* __restrict__ lut,
+                  int* __restrict__ out, long long count) {
+  __shared__ int s_lut[256];
+  for (int i = threadIdx.x; i < 256; i += kThreads) s_lut[i] = lut[i];
+  __syncthreads();
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  long long done = 0;
+  if (kVec) {
+    const long long quads = count >> 2;
+    for (long long q = first; q < quads; q += stride) {
+      int d[4];
+      load4(data, q, d);
+      reinterpret_cast<int4*>(out)[q] =
+          make_int4(s_lut[d[0] & 255], s_lut[d[1] & 255], s_lut[d[2] & 255],
+                    s_lut[d[3] & 255]);
+    }
+    done = quads << 2;
+  }
+  for (long long i = done + first; i < count; i += stride) {
+    out[i] = s_lut[static_cast<int>(data[i]) & 255];
+  }
+}
+
+template <typename T>
+int launch_lut_gather(const T* data, const int* lut, int* out, long long count,
+                      cudaStream_t stream) {
+  const bool vec = reinterpret_cast<uintptr_t>(data) % (4 * sizeof(T)) == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const long long per_block = 4LL * kThreads;
+  const long long blocks = (count + per_block - 1) / per_block;
+  const unsigned grid = static_cast<unsigned>(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096);
+  if (vec) {
+    lut_gather_kernel<T, true><<<grid, kThreads, 0, stream>>>(data, lut, out, count);
+  } else {
+    lut_gather_kernel<T, false><<<grid, kThreads, 0, stream>>>(data, lut, out, count);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes (ops/_build.py).  Each launches on
@@ -358,4 +473,27 @@ extern "C" int dxt_pack_tags(const void* tags, const void* dels, const void* len
       static_cast<const uint8_t*>(number_lut), static_cast<uint8_t*>(packed),
       static_cast<int*>(clens), width, wbytes);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dxt_pack_words(const void* v, const void* n, void* words, int n_rows,
+                              long long m, void* stream) {
+  if (n_rows <= 0) return 0;
+  pack_words_kernel<<<static_cast<unsigned>(n_rows), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(v), static_cast<const int*>(n),
+      static_cast<uint32_t*>(words), m, m + 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// is_u8: data is uint8, else int32.
+extern "C" int dxt_lut_gather(const void* data, int is_u8, const void* lut, void* out,
+                              long long count, void* stream) {
+  if (count <= 0) return 0;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (is_u8) {
+    return launch_lut_gather(static_cast<const uint8_t*>(data), static_cast<const int*>(lut),
+                             static_cast<int*>(out), count, st);
+  }
+  return launch_lut_gather(static_cast<const int*>(data), static_cast<const int*>(lut),
+                           static_cast<int*>(out), count, st);
 }

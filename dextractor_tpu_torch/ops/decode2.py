@@ -315,11 +315,14 @@ def _tag_letters(codes):
 # fused five-channel entry decode
 # ---------------------------------------------------------------------------
 
+_POS0_ROW = {0: 0, 2: 1, 3: 2, 4: 3}   # channel (del, ins, mrg, sub) -> pos0 row
+
+
 def decode_entry_batch2(rect_del, tag_bytes, rect_ins, rect_mrg, rect_sub,
                         rlens, sids, f1, f2, types, del_char, sub_char, *,
                         max_len: int, max_tokens: int, del_mode: str,
                         sub_mode: str, subw: int, lmax: int,
-                        chan_l2: tuple | None = None):
+                        chan_l2: tuple | None = None, pos0=None, carry=None):
     """Five-channel .dexqv entry decode of N entries on rlens' device.
 
     rect_del/ins/mrg/sub: (N, K_c) i32 channel words (u32 bit patterns);
@@ -329,6 +332,9 @@ def decode_entry_batch2(rect_del, tag_bytes, rect_ins, rect_mrg, rect_sub,
     scheme types, both read on the host; f1 (S, 256) i32 L1 tables; f2 flat
     i32 L2; del_char/sub_char the run characters (ints).  ``chan_l2[k]``
     False lets channel k skip the L2 table (its scheme is all L1-terminal).
+    pos0 (4, N) i32 and carry (2, N) i32, both optional, start every chain
+    of del, ins, mrg, sub at a bit offset and the run chains of del and sub
+    inside a run (``decode_entry_batch_seg``).
 
     The plain channels (ins, mrg, and del/sub when not run-coded) decode in
     one K4 launch, each run channel through K5, and run expansion through
@@ -350,32 +356,58 @@ def decode_entry_batch2(rect_del, tag_bytes, rect_ins, rect_mrg, rect_sub,
         plain.append((4, rect_sub))
     ks = [k for k, _ in plain]
     f1p = torch.stack([f1[sids[k]] for k in ks])
+    p0 = None if pos0 is None else torch.stack([pos0[_POS0_ROW[k]] for k in ks])
     psyms, _, _ = decode_chains.decode_plain(
         [r for _, r in plain], rlens, f1p, f2, [sig[k] for k in ks],
-        [sw[k] for k in ks], max_len=max_len, lmax=lmax)
+        [sw[k] for k in ks], max_len=max_len, lmax=lmax, pos0=p0)
     prow = dict(zip(ks, psyms))
 
-    def run_rows(rect, k_sym, k_run, rchar, tags):
+    def run_rows(rect, k_sym, k_run, rchar, tags, j):
         runs, lits, _, _ = decode_chains.decode_run(
             rect, rlens, f1[sids[k_run]], f1[sids[k_sym]],
             f2, sig[k_sym], max_tokens=max_tokens, subw=max(sw[k_sym], sw[k_run]),
-            lmax=lmax)
+            lmax=lmax, pos0=None if pos0 is None else pos0[_POS0_ROW[k_sym]],
+            carry=None if carry is None else carry[j])
         return expand.expand_runs(runs, lits, int(rchar), max_len=max_len,
                                   tag_bytes=tags)
 
     if del_mode == "run":
-        del_rows, tag_r = run_rows(rect_del, 0, 1, del_char, tag_bytes)
+        del_rows, tag_r = run_rows(rect_del, 0, 1, del_char, tag_bytes, 0)
         tag_rows = torch.where(tag_r >= 0, tag_r.to(torch.uint8),
                                in_read.to(torch.uint8) * ord("n"))
     else:
         del_rows = prow[0]
         tag_rows = _tag_letters(_unpack_tag_codes(tag_bytes, max_len)).to(torch.uint8)
     if sub_mode == "run":
-        sub_rows, _ = run_rows(rect_sub, 4, 5, sub_char, None)
+        sub_rows, _ = run_rows(rect_sub, 4, 5, sub_char, None, 1)
     else:
         sub_rows = prow[4]
     return torch.stack([torch.where(in_read, r, 0) for r in
                         (del_rows, tag_rows, prow[2], prow[3], sub_rows)])
+
+
+def decode_entry_batch_seg(rect_del, tag_in, rect_ins, rect_mrg, rect_sub,
+                           seg_rlens, pos0, carr, sids, f1, f2, types, del_char,
+                           sub_char, *, seg: int, max_tokens: int, del_mode: str,
+                           sub_mode: str, subw: int, lmax: int,
+                           chan_l2: tuple | None = None):
+    """Segmented five-channel decode: NS segment rows, each an independent
+    chain of at most ``seg`` symbols resumed at a checkpoint of the native
+    lens walk (the JAX package's ``decode_entry_batch_seg`` in its flat
+    layout, one row per live segment; its bucketed layout of several
+    segments per row is not ported).  K4 decodes the plain channels from
+    each row's ``pos0``, K5 the RLE channels from ``pos0`` and the run
+    ``carr``, and K6 expands their tokens, with the delTag codes.
+
+    rect_* (NS, K_c) i32 segment rectangles; tag_in (NS, TB) u8 packed
+    delTag codes of each segment (``qv_batch.build_seg_launch_flat``);
+    seg_rlens (NS,) i32; pos0 (4, NS) i32; carr (2, NS) i32; the rest as
+    ``decode_entry_batch2``'s.  Returns (5, NS, seg) u8 segment rows."""
+    return decode_entry_batch2(
+        rect_del, tag_in, rect_ins, rect_mrg, rect_sub, seg_rlens, sids, f1, f2,
+        types, del_char, sub_char, max_len=seg, max_tokens=max_tokens,
+        del_mode=del_mode, sub_mode=sub_mode, subw=subw, lmax=lmax,
+        chan_l2=chan_l2, pos0=pos0, carry=carr)
 
 
 def channel_params(sids, types, subw: int, chan_l2=None):

@@ -22,6 +22,18 @@ _MAX_WIDTH = 1 << 30    # the kernels index columns with 32-bit ints
 _MAX_CHANNELS = 65535   # channels are the grid's y dimension
 
 
+def fused_ok(width: int) -> bool:
+    """Does the encode step send rows of ``width`` symbols through K1/K2?
+
+    The JAX package's rule (``emit_pallas.fused_ok``): a width that is a
+    multiple of 512 and at most 8,192; every other bucket takes the
+    emission route, K9 for the table lookups and K8 for the packing
+    (parallel/pipeline.py), so both packages route every bucket alike.  The
+    limit was the TPU's VMEM; on the card K1 and K2 take rows of any width,
+    and PERF.md holds the card's own comparison of the two routes."""
+    return width % 512 == 0 and width <= 8192
+
+
 def _check(name, x, dtype, shape, device):
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")

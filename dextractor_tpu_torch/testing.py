@@ -8,7 +8,8 @@ conftest imports it) and give the same bytes for the same generator state;
 ``chip_smoke.py``.  ``lognormal_lengths`` is
 ``bench.py::lognormal_lengths``.  ``step_batch`` builds the arguments of
 ``qv_encode_step`` for a .quiva image the way ``bench.py`` and
-``__graft_entry__._example_batch`` do, ``decode_batch`` those of
+``__graft_entry__._example_batch`` do, ``widest_bucket_batch`` those of
+the widest bucket of the device encode, ``decode_batch`` those of
 ``ops.decode2.decode_entry_batch2`` for a .dexqv image the way
 ``bench.py::_qv_dec_setup`` does.  ``decode_edge_cases`` builds edge rows of
 the decode kernels with the port's own encode twins.
@@ -182,6 +183,22 @@ def step_batch(quiva: bytes):
     coding = create_qvcoding(scan_quiva(q), q.prefix, False)
     sym, run, rchars, nlut, run_on = step_tables(coding)
     return (streams, lengths.astype(np.int32), sym, run, rchars, nlut.copy()), run_on
+
+
+def widest_bucket_batch(quiva: bytes):
+    """(qv_encode_step arguments, run_on) of the widest bucket of the device
+    encode of a .quiva image, built as ``codecs.qv_codec`` builds it
+    (``encode_buckets``, ``bucket_rect``), with the whole file's coding."""
+    from .codecs.qv_codec import (bucket_rect, create_qvcoding, encode_buckets,
+                                  scan_quiva, step_tables)
+    from .formats.quiva import parse_quiva
+
+    q = parse_quiva(quiva)
+    coding = create_qvcoding(scan_quiva(q), q.prefix, False)
+    sym, run, rchars, nlut, run_on = step_tables(coding)
+    width, sel = encode_buckets(q.lengths)[-1]
+    rect, lengths = bucket_rect(q, sel, width, False)
+    return (rect, lengths, sym, run, rchars, nlut.copy()), run_on
 
 
 def decode_batch(dexqv: bytes):

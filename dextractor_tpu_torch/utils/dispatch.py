@@ -13,9 +13,10 @@ host without CUDA raises: nothing falls back to the CPU behind the caller.
 (ops/_build.py); it raises when the build or the load fails.
 
 ``LAUNCHES`` counts the kernel launches per kernel; each wrapper in
-ops/emit.py, ops/decode_chains.py, ops/expand.py and ops/pack2bit.py adds
-one where it launches its kernel.  ``TWIN_CALLS`` counts the calls of each kernel's
-plain PyTorch twin.  ``reset_counts()`` zeroes both.
+ops/emit.py, ops/lut.py, ops/decode_chains.py, ops/expand.py and
+ops/pack2bit.py adds one where it launches its kernel.  ``TWIN_CALLS``
+counts the calls of each kernel's plain PyTorch twin.  ``reset_counts()``
+zeroes both.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import os
 
 import torch
 
-KERNELS = ("encode_plain", "encode_run", "pack_tags",
+KERNELS = ("encode_plain", "encode_run", "pack_tags", "lut_gather", "pack_words",
            "decode_plain", "decode_run", "expand_runs", "pack2bit", "unpack2bit")
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)

@@ -114,13 +114,16 @@ small = make_quiva(np.random.default_rng(0), n_reads=24, min_len=300, max_len=70
 # subQV is RLE from 200,000 symbols on: short reads keep the twins' walks short
 sub = make_quiva(np.random.default_rng(7), n_reads=700, min_len=280, max_len=300,
                  sub_heavy=True)
-longr = make_quiva(np.random.default_rng(2), lengths=[2100, 100, 700])
+# a read over 8,192 symbols takes the encode's emission route (K9/K8), one
+# over 2,048 the segmented decode
+longr = make_quiva(np.random.default_rng(2), lengths=[8300, 100, 2100])
 cases = [("uniform", small, False), ("sub_heavy", sub, False),
          ("sub_heavy_lossy", sub, True), ("long_reads", longr, False)]
-chip_smoke.phase_encode_kernels("cpu", small, wide_len=600)
+chip_smoke.phase_encode_kernels("cpu", small, longr, wide_len=600)
 _, _, encoded = chip_smoke.phase_encode_slice("cpu", cases)
-chip_smoke.phase_encode_step("cpu", small)
+chip_smoke.phase_encode_step("cpu", small, longr)
 chip_smoke.phase_decode_kernels("cpu", encoded, long_len=600, row_len=300)
+chip_smoke.phase_decode_slice("cpu", encoded, segmented=False)
 chip_smoke.phase_decode_slice("cpu", encoded)
 chip_smoke.phase_decode_step("cpu", encoded[0][3])
 from dextractor_tpu_torch.codecs.twobit_codec import decode_dexta_to_fasta, encode_fasta_to_dexta
@@ -143,7 +146,9 @@ print(sorted(m for m in sys.modules if m in ("jax", "dextractor_tpu")
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip().splitlines()[-1] == "[]"
     assert "encode+assemble" in r.stderr          # the -v stage table
-    assert "[decode] long_reads" in r.stdout
+    assert "[decode] long_reads (segmented route)" in r.stdout
+    assert "[decode] long_reads (per_read route)" in r.stdout
+    assert "1 through K9/K8" in r.stdout
     assert "[2-bit] uniform_arrow" in r.stdout
 
 
