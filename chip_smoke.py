@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU: the .dexqv encode and
-decode paths and the 2-bit codecs (.dexta, .dexar).
+decode paths, the 2-bit codecs (.dexta, .dexar) and the decode step's
+phase split (tools/decode_ablate.py).
 
 Run from the repository root on a machine with an sm_90 card:
 
@@ -53,14 +54,26 @@ Phases, each printing one line (or a few) before the final JSON lines:
    log-normal long-read .fasta, an .arrow of 8,000 reads), each encode byte
    for byte against the native host path (device=False), each decode
    against the original text and the native path; both 2-bit kernels
-   launched in this phase, no twin.
+   launched in this phase, no twin;
+11. tag kernel: K10 (tag_route) against its twin, bit for bit, on the
+   uniform batch's tag rectangle with the state built from that batch's
+   decoded delQV rows (and against the TAG rows of that decode), and on the
+   edge inputs of testing.tag_edge_cases (reads of length 0, all kept and
+   none kept, a 70,000-symbol row of 4,375 tag words, kept ranks past the
+   row's words, widths that are no multiple of 128, an unaligned state);
+12. decode phase split: the port's tools/decode_ablate.py at --mb 16 in
+   process (the fused step, the delQV run chains, one plain channel, the
+   run expansion, and the delTag prep with K10), its ABLATE line; its tag
+   phase launched K10 and no twin ran.
 
 Each kernel is timed, at the main path's shapes, as device time per call
 from a torch.profiler trace (``ms``, with L2 flushed before each launch, as
 the main path finds it; ``warm_ms`` with the inputs left in L2 by the
 launch before), stream time from CUDA events (``event_ms``, warm), and
-beside its twin's device time (``plain_ms``); ``bound_ms`` is the bytes the
-function must move over the card's published memory rate.  It prints the
+beside its twin's device time (``plain_ms``) and, where one PyTorch call
+computes the same function, that call's device time with warm L2
+(``library_ms``); ``bound_ms`` is the bytes the function must move over
+the card's published memory rate.  It prints the
 kernels as one JSON line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises, so the exit code is non-zero and no result is printed.
@@ -84,6 +97,7 @@ sys.path.insert(0, REPO)
 EMIT = "dextractor_tpu_torch/ops/csrc/emit.cu"
 DECODE = "dextractor_tpu_torch/ops/csrc/decode.cu"
 TWOBIT = "dextractor_tpu_torch/ops/csrc/twobit.cu"
+TAG = "dextractor_tpu_torch/ops/csrc/tag.cu"
 KERNELS = {   # wrapper name -> (source, the TPU kernel it replaces)
     "encode_plain": (EMIT, "dextractor_tpu/ops/emit_pallas.py:623"),
     "encode_run": (EMIT, "dextractor_tpu/ops/emit_pallas.py:662"),
@@ -98,6 +112,7 @@ KERNELS = {   # wrapper name -> (source, the TPU kernel it replaces)
     "pack2bit": (TWOBIT, "dextractor_tpu/ops/emit_pallas.py:516"),
     "unpack2bit": (TWOBIT, "none (no pallas_call): the JAX package's unpack is "
                            "dextractor_tpu/ops/twobit.py:157 unpack_translate, XLA"),
+    "tag_route": (TAG, "dextractor_tpu/ops/tag_pallas.py:67"),
 }
 ENCODE_KERNELS = ("encode_plain", "encode_run", "pack_tags", "lut_gather", "pack_words")
 DECODE_KERNELS = ("decode_plain", "decode_run", "expand_runs")
@@ -147,18 +162,19 @@ def device_ms(fn, reps: int = 20, match: str | None = None, warm: bool = True):
     for the host.
 
     A trace of a twin's call holds up to ~215,000 device operations, near
-    what the profiler's activity buffers take, and a trace can come back
-    with no device activity, or (with ``match``) with fewer than ``reps``
-    of the kernel's launches; such a trace is taken once more, and said so.
-    If the second one again holds some of the kernel's launches, their mean
-    is the time; None when it holds none of the operations sought."""
+    what the profiler's activity buffers take, and the traces after such a
+    one can come back with no device activity, or (with ``match``) with
+    fewer than ``reps`` of the kernel's launches, several in a row; such a
+    trace is taken again, up to four times in all, and said so.  If the
+    last one holds some of the kernel's launches, their mean is the time;
+    None when it holds none of the operations sought."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     if warm:
         fn()
     torch.cuda.synchronize()
-    for attempt in range(2):
+    for attempt in range(4):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -168,7 +184,7 @@ def device_ms(fn, reps: int = 20, match: str | None = None, warm: bool = True):
         total = sum(e.time_range.elapsed_us() for e in ev) / 1000
         if ev and (match is None or len(ev) >= reps):
             return total / (len(ev) if match else reps), len(ev) / reps
-        if attempt:
+        if attempt == 3:
             return (total / len(ev), len(ev) / reps) if ev and match else (None, 0)
         log(f"[profiler] a trace of {reps} call(s) came back with {len(ev)} of the "
             f"device operations sought; tracing again")
@@ -307,7 +323,7 @@ def measure(name, kern, twin, nbytes, slow_twin=False, library=None, label=None)
         f"(CUDA events) kernel {event_ms} ms, twin {plain_event_ms} ms; "
         f"{nbytes} bytes: bound {bound_ms} ms at {PEAK_BYTES_PER_S / 1e12} TB/s, "
         f"{bound_copy_ms} ms at the copy bandwidth"
-        + (f"; library call {library_ms} ms" if library else ""))
+        + (f"; library call {library_ms} ms warm" if library else ""))
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": library_ms, "event_ms": event_ms,
             "plain_event_ms": plain_event_ms, "warm_ms": warm_ms, "bytes": nbytes,
@@ -1109,6 +1125,69 @@ def phase_twobit_slice(device, cases):
     return launches, twins
 
 
+def phase_tag_kernel(device, encoded, long_len: int = 70_000):
+    """K10 against its twin on ``device``: on the uniform batch's tag
+    rectangle with the state of its decoded delQV rows, where it must also
+    give that decode's TAG rows, and on ``testing.tag_edge_cases(long_len)``;
+    on the card also its times at the uniform shapes.  Returns {"tag_route":
+    {max_abs_err, times...}}."""
+    import torch
+    from dextractor_tpu_torch.ops import tag
+    from dextractor_tpu_torch.ops.decode2 import decode_entry_batch2
+    from dextractor_tpu_torch.testing import batch_to, decode_batch, tag_edge_cases
+
+    dev = torch.device(device)
+    by_name = {name: enc for name, _, _, enc in encoded}
+    args, kw = decode_batch(by_name["uniform"])
+    dargs = batch_to(args, dev)
+    rows = decode_entry_batch2(*dargs, **kw)
+    words = tag.tag_words(dargs[1])
+    state = tag.tag_state(rows[0], dargs[5], dargs[10])
+    max_len = kw["max_len"]
+    cases = [(f"uniform batch, {state.shape[0]} rows, max_len {max_len}, "
+              f"{words.shape[1]} tag words", words, state, max_len)]
+    cases += tag_edge_cases(dev, long_len)
+    err, outs = 0, []
+    for label, w, st, width in cases:
+        outs.append(tag.tag_route_rows(w, st, max_len=width))
+        err = max(err, _check_same(f"tag_route ({label})", outs[-1:],
+                                   [tag.tag_route_rows_ref(w, st, max_len=width)]))
+        log(f"[kernel] tag_route ({label}) bit-identical to twin")
+    if not torch.equal(outs[0], rows[1]):
+        raise AssertionError("tag_route on the uniform batch differs from its decode's "
+                             "TAG rows")
+    log("[kernel] tag_route on the uniform batch equals the TAG rows of its full decode")
+    res = {}
+    if on_card(dev):
+        nbytes = 4 * state.numel() + 4 * words.numel() + outs[0].numel()
+        res = measure("tag_route", lambda: tag.tag_route_rows(words, state, max_len=max_len),
+                      lambda: tag.tag_route_rows_ref(words, state, max_len=max_len), nbytes,
+                      label=f"tag_route ({cases[0][0]})")
+    res["max_abs_err"] = err
+    return {"tag_route": res}
+
+
+def phase_decode_ablate(device, mb: int = 16):
+    """The port's decode-step phase split (tools/decode_ablate.py) in
+    process on ``device``; prints its ABLATE line.  Its tag phase must launch
+    K10 (on the CPU: run its twin) and its plain_ins phase K4 with one
+    channel.  Returns (launch counts, twin calls) of the whole run."""
+    from dextractor_tpu_torch.tools import decode_ablate
+    from dextractor_tpu_torch.utils import dispatch
+
+    dispatch.reset_counts()
+    results, _ = decode_ablate.run(mb, device=device)
+    launches, twins = _counts()
+    log("ABLATE: " + json.dumps(results))
+    key = "launches" if on_card(device) else "twin_calls"
+    for phase, kernel in (("tag", "tag_route"), ("plain_ins", "decode_plain")):
+        if results[f"{phase}_{key}"] != {kernel: 1}:
+            raise AssertionError(f"decode_ablate's {phase} phase: {key} "
+                                 f"{results[f'{phase}_{key}']}, expected one {kernel}")
+    log(f"[ablate] launches {launches} twin calls {twins}")
+    return launches, twins
+
+
 def _path_launches(path, launches, twins, kernels):
     missing = [k for k in kernels if launches.get(k, 0) <= 0]
     if missing or any(twins.values()):
@@ -1145,6 +1224,10 @@ def main() -> int:
     t_launches, t_twins = phase_twobit_slice(True, tcases)
     _path_launches("2-bit", t_launches, t_twins, TWOBIT_KERNELS)
     launches.update({k: t_launches[k] for k in TWOBIT_KERNELS})
+    res.update(phase_tag_kernel("cuda", encoded))
+    a_launches, a_twins = phase_decode_ablate("cuda")
+    _path_launches("decode phase split", a_launches, a_twins, ("tag_route",))
+    launches["tag_route"] = a_launches["tag_route"]
     bad = [m for m in sys.modules if m in ("jax", "dextractor_tpu")
            or m.startswith(("jax.", "dextractor_tpu."))]
     if bad:

@@ -13,7 +13,9 @@ with the native sequential decoder on the host (``device=False``) or lets
 the native lens walk find the entries' channel offsets and decodes all of
 them as parallel chains on the device (codecs/qv_batch); when a read
 crosses ``SEG_DECODE`` symbols, a second lens walk records checkpoints and
-the reads decode as chains of at most that many symbols.
+the reads decode as chains of at most that many symbols.  A container
+written on a host of the other byte order decodes on the Python walker
+(``decode_entry``, ops/bitstream.py) in every mode, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..formats import quiva as qv
 from ..formats.ragged import (bucket_len, bucket_rows, pad_rows, padded_width,
                               rows_to_flat)
 from ..native import qv_decode_shim, qv_encode_shim
+from ..ops import bitstream as bs
 from ..ops import bitstream_torch as bt
 from ..ops import twobit as tb
 from ..ops.huffman import make_scheme
@@ -556,6 +559,94 @@ def _decode_entries_device(data: bytes, coding: dq.QVCoding, off: int,
     return wells, begs, ends_, qvs, rlens, streams
 
 
+def decode_entry(coding: dq.QVCoding, buf: np.ndarray, byte_off: int, rlen: int):
+    """Uncompress_Next_QVentry (QV.c:1428-1481): decode 5 streams.
+
+    Returns (streams (5, rlen) u8, bytes_consumed).
+    """
+    out = np.empty((5, rlen), np.uint8)
+    pos = byte_off
+    flip = coding.flip
+
+    rd = bs.BitReader(buf, pos, flip)
+    if coding.del_char < 0:
+        out[DEL], words = bs.decode_stream(coding.del_scheme, rd, rlen)
+        clen = rlen
+    else:
+        out[DEL], words = bs.decode_run_stream(coding.del_scheme, coding.drun_scheme,
+                                               rd, rlen, coding.del_char)
+        clen = int((out[DEL] != coding.del_char).sum())   # Packed_Length
+    pos += 4 * words
+
+    tlen = (clen + 3) >> 2
+    if pos + tlen > len(buf):
+        raise FormatError("could not read deletions entry")
+    packed = buf[pos: pos + tlen]
+    pos += tlen
+    kept = tb.LOWER_LUT[tb.unpack_2bit_np(packed[None, :])[0, :clen]]
+    if coding.del_char < 0:
+        out[TAG] = kept
+    else:                                                 # Unpack_Tag (QV.c:837-847)
+        mask = out[DEL] != coding.del_char
+        tag = np.full(rlen, ord("n"), np.uint8)
+        tag[mask] = kept
+        out[TAG] = tag
+
+    rd = bs.BitReader(buf, pos, flip)
+    out[INS], words = bs.decode_stream(coding.ins_scheme, rd, rlen)
+    pos += 4 * words
+    rd = bs.BitReader(buf, pos, flip)
+    out[MRG], words = bs.decode_stream(coding.mrg_scheme, rd, rlen)
+    pos += 4 * words
+    rd = bs.BitReader(buf, pos, flip)
+    if coding.sub_char < 0:
+        out[SUB], words = bs.decode_stream(coding.sub_scheme, rd, rlen)
+    else:
+        out[SUB], words = bs.decode_run_stream(coding.sub_scheme, coding.srun_scheme,
+                                               rd, rlen, coding.sub_char)
+    pos += 4 * words
+    return out, pos - byte_off
+
+
+def _walk_python(data: bytes, coding: dq.QVCoding, off: int, newv: bool):
+    """Decode all entries with the Python walker (``decode_entry``), the
+    decoder of a container written on a host of the other byte order: its
+    header fields and stream words are read byte-swapped.  Returns (wells,
+    begs, ends, qvs, lengths, streams (5, total) u8)."""
+    buf = np.frombuffer(data, np.uint8)
+    mv = memoryview(data)
+    size = len(buf)
+    wells, begs, ends_, qvs, lengths, parts = [], [], [], [], [], []
+    well = 0
+    fmt = struct.Struct((">" if coding.flip else "<") + ("iii" if newv else "3H"))
+    while off < size:
+        b = buf[off]
+        off += 1
+        while b == 255:
+            well += 255
+            if off >= size:
+                raise FormatError("truncated .dexqv (well escape)")
+            b = buf[off]
+            off += 1
+        well += int(b)
+        if off + fmt.size > size:
+            raise FormatError("truncated .dexqv (fields)")
+        beg, endp, q_ = fmt.unpack_from(mv, off)
+        off += fmt.size
+        rlen = endp - beg
+        entry, consumed = decode_entry(coding, buf, off, rlen)
+        off += consumed
+        wells.append(well)
+        begs.append(beg)
+        ends_.append(endp)
+        qvs.append(q_)
+        lengths.append(rlen)
+        parts.append(entry)
+    streams = np.concatenate(parts, axis=1) if parts else np.empty((5, 0), np.uint8)
+    return (np.array(wells), np.array(begs), np.array(ends_), np.array(qvs),
+            np.array(lengths, np.int64), streams)
+
+
 def decode_dexqv_to_quiva(data: bytes, upper: bool = False, device=None) -> bytes:
     """Decode a .dexqv image to .quiva text (undexqv.c:101-208).
 
@@ -567,8 +658,10 @@ def decode_dexqv_to_quiva(data: bytes, upper: bool = False, device=None) -> byte
                     the kernels' plain twins);
     device=None  -> utils/dispatch.device_default(), as the encoder.
     ``upper`` writes the delTag in upper case (-U).  A container written on
-    a host of the other byte order raises FormatError: its decoder is not
-    ported yet (ROADMAP.md, queue 1).
+    a host of the other byte order (``coding.flip``) decodes on the Python
+    walker (``_walk_python``) whatever ``device`` says, as in the JAX
+    package: the native walker and the device chains read little-endian
+    words only.
     """
     if len(data) < 2:
         raise FormatError("not a .dexqv file (empty or truncated)")
@@ -577,11 +670,12 @@ def decode_dexqv_to_quiva(data: bytes, upper: bool = False, device=None) -> byte
         (key,) = struct.unpack_from("<H", mv, 0)
         newv = key in (dq.CONTAINER_KEY, 0xAA55)
         coding, off = dq.parse_qvcoding(mv, 2 if newv else 0)  # legacy: no key
-    if coding.flip:
-        raise FormatError("this .dexqv was written on a host of the other byte "
-                          "order; its decoder is not ported yet (ROADMAP.md)")
     dev = resolve_device(device)
-    if dev is None:
+    if coding.flip:
+        with stage("decode (Python walker)", len(data)):
+            wells, begs, ends_, qvs, lengths, streams = _walk_python(
+                data, coding, off, newv)
+    elif dev is None:
         with stage("decode", len(data)):
             wells, begs, ends_, qvs, lengths, streams = _walk_native(
                 data, coding, off, newv)

@@ -11,6 +11,9 @@ package's, quirks included (``Number_Arrow`` maps 'G'->2 in addition to
 '1','2','3'->0,1,2 with a default of 3, reference DB.c:418-441); a CPU test
 holds each against its original.
 
+``unpack_2bit_np`` unpacks the delTag bytes of the host walker
+(``codecs/qv_codec.decode_entry``).
+
 ``pack2bit_twin`` and ``unpack2bit_twin`` are the plain versions of the CUDA
 kernels ``dxt_pack2bit`` (K7) and ``dxt_unpack2bit`` (ops/pack2bit.py): the
 wrappers run them for tensors on the CPU, and ``chip_smoke.py`` holds each
@@ -56,6 +59,17 @@ NUMBER_ARROW_LUT = _number_arrow_table()
 LOWER_LUT = np.frombuffer(b"acgt", np.uint8).copy()
 UPPER_LUT = np.frombuffer(b"ACGT", np.uint8).copy()
 ARROW_LETTER_LUT = np.frombuffer(b"1234", np.uint8).copy()
+
+
+def unpack_2bit_np(packed: np.ndarray) -> np.ndarray:
+    """Unpack (N, C) bytes into (N, 4*C) numeric codes 0..3."""
+    n, c = packed.shape
+    out = np.empty((n, c, 4), np.uint8)
+    out[..., 0] = packed >> 6
+    out[..., 1] = (packed >> 4) & 3
+    out[..., 2] = (packed >> 2) & 3
+    out[..., 3] = packed & 3
+    return out.reshape(n, 4 * c)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@ conftest imports it) and give the same bytes for the same generator state;
 the widest bucket of the device encode, ``decode_batch`` those of
 ``ops.decode2.decode_entry_batch2`` for a .dexqv image the way
 ``bench.py::_qv_dec_setup`` does.  ``decode_edge_cases`` builds edge rows of
-the decode kernels with the port's own encode twins.
+the decode kernels with the port's own encode twins, ``tag_edge_cases``
+edge inputs of K10.
 
 No weights or parameters are carried over from the JAX package: the
 ``.dexqv`` tables are built from each file's data (tests convert the JAX
@@ -447,6 +448,56 @@ def check_decode_case(name, out, expect):
     if not (ok and stats):
         raise AssertionError(f"{name}: decoded symbols {'ok' if ok else 'wrong'}, "
                              f"bits/last {'ok' if stats else 'differ from the encoder'}")
+
+
+def tag_edge_cases(device, long_len: int = 70_000):
+    """Edge inputs of K10 (ops/tag.tag_route_rows) on ``device``: (label,
+    tag words (N, TBW) i32, state (N, max_len) i32, max_len).  The state
+    comes from ``tag.tag_state`` on delQV rows with delChar 102 ('f').
+
+    The cases: rows of 4,096 columns with a read of length 0, a full read,
+    an all-kept and a none-kept read; a ``long_len``-symbol row (at the
+    default 4,375 tag words, past 4,096), all kept and mostly kept; kept
+    ranks past the row's words (4 words, 2,048 columns); widths that are no
+    multiple of 128 (1,001, which is no multiple of 4 either, and 300); a
+    state 4 bytes off 16-byte alignment; and rows without tag words."""
+    import torch
+
+    from .ops import tag
+
+    rng = np.random.default_rng(29)
+    dev = torch.device(device)
+    del_char = 102
+    cases = []
+
+    def case(label, rlens, kept_share, tb, width):
+        n = len(rlens)
+        kept = rng.random((n, width)) < np.asarray(kept_share)[:, None]
+        other = rng.integers(33, 80, (n, width))
+        other[other == del_char] = 101
+        del_rows = torch.from_numpy(np.where(kept, other, del_char).astype(np.uint8))
+        state = tag.tag_state(del_rows, torch.as_tensor(rlens), del_char)
+        words = tag.tag_words(torch.from_numpy(rng.integers(0, 256, (n, tb), dtype=np.uint8)))
+        cases.append((label, words.to(dev), state.to(dev), width))
+
+    w = 4096
+    case("0, full, all-kept, none-kept and random reads of 4,096 columns",
+         [0, w, 3000, 2500, 1234], [0.8, 0.8, 1.0, 0.0, 0.5], w // 4, w)
+    case(f"{long_len}-symbol rows, {long_len // 16} tag words", [long_len, long_len - 3],
+         [1.0, 0.75], long_len // 4, long_len)
+    case("kept ranks past the row's 4 tag words", [2048, 2000, 65, 64], [1.0, 0.9, 1.0, 1.0],
+         16, 2048)
+    case("max_len 1,001 (no multiple of 128 or 4)", [1001, 0, 999, 500, 1000, 7],
+         [0.8, 0.8, 1.0, 0.0, 0.6, 1.0], 250, 1001)
+    case("max_len 300 (no multiple of 128)", [300, 1, 299, 150], [0.8, 1.0, 0.0, 0.7], 75, 300)
+    label, words, state, width = cases[0]
+    flat = torch.zeros(state.numel() + 1, dtype=torch.int32, device=dev)
+    shifted = flat[1:].view(state.shape)                 # data_ptr % 16 == 4
+    shifted.copy_(state)
+    cases.append(("the first case's state 4 bytes off 16-byte alignment", words, shifted,
+                  width))
+    case("rows without tag words (TBW 0)", [64, 10, 0], [1.0, 0.5, 1.0], 3, 64)
+    return cases
 
 
 def lossy_quiva(quiva: bytes) -> bytes:

@@ -13,8 +13,8 @@ host without CUDA raises: nothing falls back to the CPU behind the caller.
 (ops/_build.py); it raises when the build or the load fails.
 
 ``LAUNCHES`` counts the kernel launches per kernel; each wrapper in
-ops/emit.py, ops/lut.py, ops/decode_chains.py, ops/expand.py and
-ops/pack2bit.py adds one where it launches its kernel.  ``TWIN_CALLS``
+ops/emit.py, ops/lut.py, ops/decode_chains.py, ops/expand.py,
+ops/pack2bit.py and ops/tag.py adds one where it launches its kernel.  ``TWIN_CALLS``
 counts the calls of each kernel's plain PyTorch twin.  ``reset_counts()``
 zeroes both.
 """
@@ -26,7 +26,8 @@ import os
 import torch
 
 KERNELS = ("encode_plain", "encode_run", "pack_tags", "lut_gather", "pack_words",
-           "decode_plain", "decode_run", "expand_runs", "pack2bit", "unpack2bit")
+           "decode_plain", "decode_run", "expand_runs", "pack2bit", "unpack2bit",
+           "tag_route")
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 TWIN_CALLS = dict.fromkeys(KERNELS, 0)

@@ -72,22 +72,6 @@ def _legacy(enc: bytes) -> bytes:
     return bytes(out)
 
 
-def _flipped(enc: bytes) -> bytes:
-    """The coding (of a file without subChar) as a big-endian host writes
-    it (QV.c:1173-1240)."""
-    coding, off = tdq.parse_qvcoding(memoryview(enc), 2)
-    assert coding.sub_char < 0
-    dc = coding.del_char if coding.del_char >= 0 else 256
-    head = struct.pack(">HHHi", tdq.CODEC_KEY, dc, 256, len(coding.prefix)) + coding.prefix
-    for s in (coding.del_scheme, coding.drun_scheme, coding.ins_scheme,
-              coding.mrg_scheme, coding.sub_scheme):
-        if s is not None:
-            head += bytes([s.type]) + b"".join(
-                bytes([int(n)]) + (int(b).to_bytes(4, "big") if n else b"")
-                for n, b in zip(s.codelens, s.codebits))
-    return enc[:2] + head + enc[off:]
-
-
 def test_decode_upper_and_legacy_container(corpora):
     data = corpora["run_del"]
     enc = tq.encode_quiva_to_dexqv(data, device=False)
@@ -103,11 +87,6 @@ def test_decode_upper_and_legacy_container(corpora):
 
 def test_decode_refuses_what_it_cannot_decode(corpora, monkeypatch):
     enc = tq.encode_quiva_to_dexqv(corpora["run_del"], device=False)
-    flipped = _flipped(enc)
-    assert tdq.parse_qvcoding(memoryview(flipped), 2)[0].flip
-    for device in (False, "cpu"):
-        with pytest.raises(FormatError, match="ROADMAP"):
-            tq.decode_dexqv_to_quiva(flipped, device=device)
     with pytest.raises(FormatError):
         tq.decode_dexqv_to_quiva(b"\xaa", device=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -85,9 +85,10 @@ def test_cli_dexqv(corpora, tmp_path):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """In a fresh interpreter: import every module of the port and
-    chip_smoke, encode and decode (.dexqv and .dexta) on the CPU, run the
-    CLI (dexqv, dexta, undexta), and rehearse
+    """In a fresh interpreter: import every module of the port (ops.tag,
+    ops.bitstream and tools.decode_ablate among them) and chip_smoke, encode
+    and decode (.dexqv and .dexta) on the CPU, run the CLI (dexqv, dexta,
+    undexta), and rehearse
     every phase of chip_smoke on the CPU at the smallest sizes that reach
     each branch (the wrappers run their twins there; tests/test_torch_decode_*
     cover the decode at larger sizes).  Neither jax nor the JAX package may be imported."""
@@ -100,6 +101,8 @@ import dextractor_tpu_torch
 for m in pkgutil.walk_packages(dextractor_tpu_torch.__path__, "dextractor_tpu_torch."):
     if not m.name.endswith("__main__"):
         importlib.import_module(m.name)
+for m in ("ops.tag", "ops.bitstream", "tools.decode_ablate"):
+    assert "dextractor_tpu_torch." + m in sys.modules
 import chip_smoke
 from dextractor_tpu_torch.cli import main
 from dextractor_tpu_torch.codecs.qv_codec import decode_dexqv_to_quiva, encode_quiva_to_dexqv
@@ -126,6 +129,8 @@ chip_smoke.phase_decode_kernels("cpu", encoded, long_len=600, row_len=300)
 chip_smoke.phase_decode_slice("cpu", encoded, segmented=False)
 chip_smoke.phase_decode_slice("cpu", encoded)
 chip_smoke.phase_decode_step("cpu", encoded[0][3])
+chip_smoke.phase_tag_kernel("cpu", encoded, long_len=600)
+chip_smoke.phase_decode_ablate("cpu", mb=0)
 from dextractor_tpu_torch.codecs.twobit_codec import decode_dexta_to_fasta, encode_fasta_to_dexta
 from dextractor_tpu_torch.testing import make_arrow, make_fasta
 fa = make_fasta(np.random.default_rng(0), n_reads=30, min_len=0, max_len=500)
@@ -150,6 +155,8 @@ print(sorted(m for m in sys.modules if m in ("jax", "dextractor_tpu")
     assert "[decode] long_reads (per_read route)" in r.stdout
     assert "1 through K9/K8" in r.stdout
     assert "[2-bit] uniform_arrow" in r.stdout
+    assert "equals the TAG rows of its full decode" in r.stdout
+    assert "ABLATE: " in r.stdout and "[ablate] launches" in r.stdout
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(sub_heavy=True, del_run=False),
