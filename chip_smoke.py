@@ -21,7 +21,8 @@ Phases, each printing one line (or a few) before the final JSON lines:
    route gives them at the widest bucket of the long-read batch (61,440
    symbols, 122,881 slots on the RLE channel) and on edge rows (0 slots,
    all-zero widths, 32-bit emissions that straddle words, type-2 and run
-   escapes from 70,000-symbol rows, every u8 and run index 0-255);
+   escapes from 70,000-symbol rows, every u8 and run index 0-255); K8 also
+   at the narrowest bucket the emission route takes;
 4. encode slice: encode_quiva_to_dexqv(device=True) on four corpora (the
    uniform batch, a sub-heavy corpus, the same lossy, the log-normal
    long-read batch), each byte for byte against the native C encoder
@@ -35,7 +36,9 @@ Phases, each printing one line (or a few) before the final JSON lines:
    channel), K5 (decode_run) on delQV and K6 (expand_runs) with the delTag
    codes on delQV at the uniform batch's decode shapes, K5 and K6 on subQV
    of the sub-heavy corpus, and the edge rows of
-   testing.decode_edge_cases, each against its twin bit for bit;
+   testing.decode_edge_cases (among them run chains whose every code is 8
+   bits long, and whose every code is an escape; each run chain also cut
+   at a third of its tokens), each against its twin bit for bit;
 7. decode slice: decode_dexqv_to_quiva(device=True) on the four encoded
    corpora against the original .quiva and the native walker
    (device=False), through the segmented route (the default: every corpus
@@ -73,7 +76,9 @@ launch before), stream time from CUDA events (``event_ms``, warm), and
 beside its twin's device time (``plain_ms``) and, where one PyTorch call
 computes the same function, that call's device time with warm L2
 (``library_ms``); ``bound_ms`` is the bytes the function must move over
-the card's published memory rate.  It prints the
+the card's published memory rate; ``ops_per_call`` the device operations
+per call in a warm trace of 20 calls (1: the call is its one kernel, so
+``ms`` is its device time; below 1 where the trace dropped operations).  It prints the
 kernels as one JSON line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises, so the exit code is non-zero and no result is printed.
@@ -305,6 +310,9 @@ def measure(name, kern, twin, nbytes, slow_twin=False, library=None, label=None)
     event_ms = cuda_ms(kern)
     warm_ms, _ = device_ms(kern, match=match)
     ms, _ = device_ms(lambda: (flush.zero_(), kern()), match=match)
+    # the device operations of one call (warm): where it is one, the
+    # kernel's mean time per launch (ms, warm_ms) is the call's device time
+    _, ops = device_ms(kern)
     if slow_twin:
         plain_event_ms = cuda_ms(twin, reps=1, rounds=1, warmup=0)
         plain_ms, n_ops = device_ms(twin, reps=1, warm=False)
@@ -322,12 +330,12 @@ def measure(name, kern, twin, nbytes, slow_twin=False, library=None, label=None)
         f"{warm_ms} ms warm; twin {plain_ms} ms in {n_ops} device ops; stream time "
         f"(CUDA events) kernel {event_ms} ms, twin {plain_event_ms} ms; "
         f"{nbytes} bytes: bound {bound_ms} ms at {PEAK_BYTES_PER_S / 1e12} TB/s, "
-        f"{bound_copy_ms} ms at the copy bandwidth"
+        f"{bound_copy_ms} ms at the copy bandwidth; {ops} device ops per call"
         + (f"; library call {library_ms} ms warm" if library else ""))
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": library_ms, "event_ms": event_ms,
             "plain_event_ms": plain_event_ms, "warm_ms": warm_ms, "bytes": nbytes,
-            "bound_copy_ms": bound_copy_ms}
+            "bound_copy_ms": bound_copy_ms, "ops_per_call": ops}
 
 
 def wide_rows(rchar: int, l: int = 70_000, seed: int = 11):
@@ -407,6 +415,27 @@ def emission_edges(dev, wide_len: int):
                (torch.from_numpy(v.astype(np.uint32).view(np.int32)).to(dev),
                 torch.from_numpy(wide).to(dev))]
     return lut_in, pack_in
+
+
+def narrowest_pack_words(long: bytes, dev):
+    """K8's widest input (the RLE plane) at the narrowest bucket of
+    ``long`` that the emission route takes (``emit.fused_ok`` refuses its
+    width), recorded as in ``route_inputs``, and a label."""
+    import torch
+    from dextractor_tpu_torch.codecs.qv_codec import encode_buckets
+    from dextractor_tpu_torch.formats.quiva import parse_quiva
+    from dextractor_tpu_torch.ops.emit import fused_ok
+    from dextractor_tpu_torch.parallel import pipeline
+    from dextractor_tpu_torch.testing import widest_bucket_batch
+
+    widths = [w for w, _ in encode_buckets(parse_quiva(long).lengths)]
+    i = next(i for i, w in enumerate(widths) if not fused_ok(w))
+    (streams, lengths, sym, run, rchars, _), run_on = widest_bucket_batch(long, i)
+    step_in = [torch.from_numpy(a).to(dev) for a in (streams, lengths, sym, run, rchars)]
+    seen = route_inputs(lambda: pipeline.channels_emissions(*step_in, run_on))
+    pw = max(seen["pack_words"], key=lambda a: a[0].shape[1])
+    return pw, (f"pack_words (narrowest emission-route bucket, width {widths[i]}, "
+                f"{pw[0].shape[0]} x {pw[0].shape[1]} slots)")
 
 
 def phase_encode_kernels(device, uniform: bytes, long: bytes, wide_len: int = 70_000):
@@ -509,7 +538,18 @@ def phase_encode_kernels(device, uniform: bytes, long: bytes, wide_len: int = 70
         rows, m = pw[0].shape
         res["pack_words"].update(measure(
             "pack_words", lambda: lut.pack_words(*pw), lambda: twins["pack_words"](*pw),
-            8 * rows * m + 4 * rows * (m + 1)))
+            8 * rows * m + 4 * rows * (m + 1),
+            label=f"pack_words (widest long-read bucket, {rows} x {m} slots)"))
+        # and at the narrowest bucket the emission route takes, where K8 has
+        # the most rows of the route and the fewest slots
+        pw, label = narrowest_pack_words(long, dev)
+        _check_same(label, (lut.pack_words(*pw),), (twins["pack_words"](*pw),))
+        rows, m = pw[0].shape
+        narrow = measure("pack_words", lambda: lut.pack_words(*pw),
+                         lambda: twins["pack_words"](*pw), 8 * rows * m + 4 * rows * (m + 1),
+                         label=label)
+        res["pack_words"].update({f"narrow_{k}": narrow[k] for k in (
+            "ms", "warm_ms", "plain_ms", "bound_ms", "event_ms", "bytes")})
 
     def wide_emissions():
         v, n, _, _ = bt.plain_emissions(dd, wld, conc[0], gather=lut.lut_gather)
@@ -779,7 +819,10 @@ def phase_decode_kernels(device, encoded, long_len: int = 70_000, row_len: int =
             l2_lens.append(a[3 if name == "decode_plain" else 4].numel())
         out = run(name, a, k, f"edge: {label}")
         check_decode_case(label, out, expect)
-        if name == "decode_run":           # K6 on the same tokens, with tags
+        if name == "decode_run":
+            # chains cut at a third of their tokens; K6 on the whole tokens, with tags
+            run(name, a, dict(k, max_tokens=k["max_tokens"] // 3),
+                f"edge: {label}, max_tokens {k['max_tokens'] // 3}")
             tb = torch.from_numpy(rng.integers(0, 256, (out[0].shape[0], 64),
                                                dtype=np.uint8)).to(dev)
             width = expect["rows"].shape[1]

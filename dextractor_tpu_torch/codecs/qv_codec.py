@@ -6,7 +6,10 @@ delChar/subChar discovery, QV.c:895-918), the Huffman schemes are built
 once per file (QV.c:1029-1136), then every entry's five streams are
 encoded — by the native C channel encoder on the host (``device=False``)
 or as batched device steps (parallel/pipeline.qv_encode_step), one per
-quarter-octave row-length bucket (``encode_buckets``).
+quarter-octave row-length bucket (``encode_buckets``).  Where a native
+shim cannot build (no C compiler), each host step takes the JAX package's
+NumPy fallback: the scan's histograms, the ragged copies, and on the host
+path the per-entry encoder (``encode_entry``, ops/bitstream.py).
 
 Decode (undexqv.c:101-208) parses the coding, then either walks every entry
 with the native sequential decoder on the host (``device=False``) or lets
@@ -15,7 +18,8 @@ them as parallel chains on the device (codecs/qv_batch); when a read
 crosses ``SEG_DECODE`` symbols, a second lens walk records checkpoints and
 the reads decode as chains of at most that many symbols.  A container
 written on a host of the other byte order decodes on the Python walker
-(``decode_entry``, ops/bitstream.py) in every mode, as in the JAX package.
+(``decode_entry``, ops/bitstream.py) in every mode, as in the JAX package;
+so does every container when the native walker cannot build.
 """
 
 from __future__ import annotations
@@ -64,18 +68,47 @@ def _ptr(a):
 
 
 def _run_hist_entries(streams_flat, offsets, r0, rchar):
-    """Histogram_Runs (QV.c:702-724) over entries [r0, n) in one native
-    pass: one run token (the rchar run length, possibly 0) before each
-    literal, plus a trailing symbol-less run token when an entry ends in
-    rchar characters."""
+    """Histogram_Runs (QV.c:702-724) over entries [r0, n): one run token
+    (the rchar run length, possibly 0) before each literal, plus a trailing
+    symbol-less run token when an entry ends in rchar characters.  One
+    native pass, or NumPy over the flat region when the shim cannot build."""
     lo, hi = int(offsets[r0]), int(offsets[-1])
     hist = np.zeros(256, np.int64)
     if hi <= lo:
         return hist
     seg = np.ascontiguousarray(streams_flat[lo:hi])
     bnd = np.ascontiguousarray(np.asarray(offsets[r0:], np.int64) - lo)
-    qv_encode_shim().dxt_run_hist(_ptr(seg), _ptr(bnd), len(bnd) - 1,
-                                  int(rchar), _ptr(hist))
+    try:
+        lib = qv_encode_shim()
+    except OSError:
+        return _run_hist_np(seg, bnd, rchar)
+    lib.dxt_run_hist(_ptr(seg), _ptr(bnd), len(bnd) - 1, int(rchar), _ptr(hist))
+    return hist
+
+
+def _run_hist_np(seg, bnd, rchar):
+    """``_run_hist_entries`` in NumPy: ``seg`` the flat symbols, ``bnd``
+    the entry boundaries in it (0 .. len(seg))."""
+    hist = np.zeros(256, np.int64)
+    lits = np.flatnonzero(seg != rchar)
+    # nxt[i]: the first literal at or after boundary i
+    nxt = np.searchsorted(lits, bnd, "left")
+    has_lit = nxt[:-1] < nxt[1:]
+    if len(lits):
+        prev = np.concatenate([[np.int64(-1)], lits[:-1]])
+        runlens = lits - prev - 1                    # gap to the previous literal
+        first = nxt[:-1][has_lit]                    # first literal of each entry
+        runlens[first] = lits[first] - bnd[:-1][has_lit]
+        hist += np.bincount(np.minimum(runlens, 255), minlength=256)
+    # the trailing run of each entry (after its last literal; the whole
+    # entry when it has none); entries of length 0 add nothing
+    last_end = np.where(has_lit,
+                        lits[np.maximum(nxt[1:] - 1, 0)] + 1 if len(lits) else np.int64(0),
+                        bnd[:-1])
+    trail = bnd[1:] - last_end
+    trail = trail[trail > 0]
+    if len(trail):
+        hist += np.bincount(np.minimum(trail, 255), minlength=256)
     return hist
 
 
@@ -89,14 +122,22 @@ def scan_streams(streams: np.ndarray, lengths: np.ndarray) -> QVStats:
     total = int(off[-1])
 
     # one native pass for the four flat histograms and the first 'n'/'N'
-    # delTag in file order
-    hist4 = np.zeros((4, 256), np.int64)
-    fn = np.zeros(1, np.int64)
-    rows = [np.ascontiguousarray(streams[c]) for c in (DEL, INS, MRG, SUB, TAG)]
-    qv_encode_shim().dxt_qv_scan_hists(*(_ptr(r) for r in rows), total,
-                                       _ptr(hist4), _ptr(fn))
-    del_hist, ins_hist, mrg_hist, sub_hist = hist4
-    first_n = int(fn[0])
+    # delTag in file order; NumPy when the shim cannot build
+    try:
+        lib = qv_encode_shim()
+    except OSError:
+        del_hist, ins_hist, mrg_hist, sub_hist = (
+            np.bincount(streams[c], minlength=256).astype(np.int64)
+            for c in (DEL, INS, MRG, SUB))
+        tagn = np.flatnonzero((streams[TAG] == ord("n")) | (streams[TAG] == ord("N")))
+        first_n = int(tagn[0]) if len(tagn) else -1
+    else:
+        hist4 = np.zeros((4, 256), np.int64)
+        fn = np.zeros(1, np.int64)
+        rows = [np.ascontiguousarray(streams[c]) for c in (DEL, INS, MRG, SUB, TAG)]
+        lib.dxt_qv_scan_hists(*(_ptr(r) for r in rows), total, _ptr(hist4), _ptr(fn))
+        del_hist, ins_hist, mrg_hist, sub_hist = hist4
+        first_n = int(fn[0])
 
     # delChar: the delQV under the first 'n'/'N' delTag (QV.c:993-1002);
     # its run histogram covers that entry onward.
@@ -189,10 +230,42 @@ def step_tables(coding: dq.QVCoding):
     return sym, run, rchars, tb.NUMBER_BASE_LUT, run_on
 
 
+def encode_entry(coding: dq.QVCoding, delqv, tag, ins, mrg, sub, lossy: bool) -> bytes:
+    """Compress_Next_QVentry (QV.c:1381-1426) for one entry -> payload bytes."""
+    parts = []
+    if coding.del_char < 0:
+        parts.append(bs.encode_stream(coding.del_scheme, delqv).tobytes())
+        kept = tag
+    else:
+        parts.append(bs.encode_run_stream(coding.del_scheme, coding.drun_scheme,
+                                          delqv, coding.del_char).tobytes())
+        kept = tag[delqv != coding.del_char]              # Pack_Tag (QV.c:810-819)
+    codes = tb.NUMBER_BASE_LUT[kept]
+    clen = len(codes)
+    tlen = (clen + 3) >> 2
+    if tlen:
+        padded = np.zeros(4 * tlen, np.uint8)
+        padded[:clen] = codes
+        parts.append(tb.pack_2bit_np(padded[None, :])[0].tobytes())
+    if lossy:                                             # QV.c:1406-1415
+        ins = ins & 0xFE
+        mrg = mrg & 0xFC
+    parts.append(bs.encode_stream(coding.ins_scheme, ins).tobytes())
+    parts.append(bs.encode_stream(coding.mrg_scheme, mrg).tobytes())
+    if coding.sub_char < 0:
+        parts.append(bs.encode_stream(coding.sub_scheme, sub).tobytes())
+    else:
+        parts.append(bs.encode_run_stream(coding.sub_scheme, coding.srun_scheme,
+                                          sub, coding.sub_char).tobytes())
+    return b"".join(parts)
+
+
 def encode_quiva_to_dexqv(data: bytes, lossy: bool = False, device=None) -> bytes:
     """Encode a .quiva image.
 
-    device=False -> the native C channel encoder on the host;
+    device=False -> the native C channel encoder on the host (the per-entry
+                    NumPy encoder, ``encode_entry``, when its shim cannot
+                    build);
     device=True  -> the batched step on the CUDA device (raises without one);
     "cpu" / "cuda" / a torch.device -> the batched step there ("cpu" runs
                     the kernels' plain twins);
@@ -207,16 +280,28 @@ def encode_quiva_to_dexqv(data: bytes, lossy: bool = False, device=None) -> byte
         coding = create_qvcoding(stats, q.prefix, lossy)
     dev = resolve_device(device)
     with stage("encode+assemble", payload):
-        if dev is None:
-            return _encode_entries_native(q, coding, lossy)
-        return _encode_entries_device(q, coding, lossy, dev)
+        if dev is not None:
+            return _encode_entries_device(q, coding, lossy, dev)
+        out = _encode_entries_native(q, coding, lossy)
+        if out is not None:
+            return out
+        off = np.zeros(q.n_entries + 1, np.int64)
+        np.cumsum(q.lengths, out=off[1:])
+        blobs = [encode_entry(coding, *(q.streams[c, off[i]:off[i + 1]]
+                                        for c in (DEL, TAG, INS, MRG, SUB)), lossy)
+                 for i in range(q.n_entries)]
+        return dq.write_dexqv(coding, q.wells, q.begs, q.ends, q.qvs, blobs)
 
 
-def _encode_entries_native(q: qv.QuivaFile, coding: dq.QVCoding, lossy: bool) -> bytes:
-    """All five channels through the C channel encoder (host CPU path)."""
+def _encode_entries_native(q: qv.QuivaFile, coding: dq.QVCoding, lossy: bool):
+    """All five channels through the C channel encoder (host CPU path), or
+    None when its shim cannot build."""
     from concurrent.futures import ThreadPoolExecutor
 
-    lib = qv_encode_shim()
+    try:
+        lib = qv_encode_shim()
+    except OSError:
+        return None
     n = q.n_entries
     offs = np.zeros(n + 1, np.int64)
     np.cumsum(q.lengths, out=offs[1:])
@@ -378,7 +463,16 @@ def _encode_entries_device(q: qv.QuivaFile, coding: dq.QVCoding, lossy: bool,
         offs_full = np.zeros(n, np.int64)
         np.cumsum(lens_full[:-1], out=offs_full[1:])
         out = np.empty(int(lens_full.sum()), np.uint8)
-        lib = qv_encode_shim()
+        try:
+            lib = qv_encode_shim()
+        except OSError:                  # one slice copy per entry instead
+            for sel, flat, lens in chs:
+                src = 0
+                for i, e in enumerate(sel):
+                    n_b = int(lens[i])
+                    out[offs_full[e]:offs_full[e] + n_b] = flat[src:src + n_b]
+                    src += n_b
+            return out, lens_full
         for sel, flat, lens in chs:
             lib.dxt_ragged_copy(
                 _ptr(out), _ptr(np.ascontiguousarray(offs_full[sel])),
@@ -425,8 +519,11 @@ def _index_native(data: bytes, coding: dq.QVCoding, off: int, newv: bool):
     materialising any stream (QV.c:1381-1426: every stream's byte length is
     known only after decoding it).  Returns (wells, begs, ends, qvs, entry
     offsets, entry lengths, channel offsets (ne, 5), run-token counts
-    (ne, 2))."""
-    lib = qv_decode_shim()
+    (ne, 2)), or None when the walker's shim cannot build."""
+    try:
+        lib = qv_decode_shim()
+    except OSError:
+        return None
     lookups, lens, types, sid = _walk_tables(coding)
     buf = np.frombuffer(data, np.uint8)
     cap = max(len(buf) // (13 if newv else 7) + 2, 16)
@@ -487,11 +584,15 @@ def _index_checkpoints(data: bytes, coding: dq.QVCoding, off: int, newv: bool,
 
 def _walk_native(data: bytes, coding: dq.QVCoding, off: int, newv: bool):
     """Decode all entries with the native sequential walker.  Returns
-    (wells, begs, ends, qvs, lengths, streams (5, total) u8).
+    (wells, begs, ends, qvs, lengths, streams (5, total) u8), or None when
+    its shim cannot build.
 
     One materialising pass: the output capacity is estimated and doubled on
     overflow (walker rc -3)."""
-    lib = qv_decode_shim()
+    try:
+        lib = qv_decode_shim()
+    except OSError:
+        return None
     lookups, lens, types, sid = _walk_tables(coding)
     buf = np.frombuffer(data, np.uint8)
     size = len(buf)
@@ -536,12 +637,15 @@ def _decode_entries_device(data: bytes, coding: dq.QVCoding, off: int,
     and every read decodes as chains of at most SEG_DECODE symbols
     (qv_batch.fused_decode_entries_seg); otherwise, or with the environment
     variable DXT_SEG_DECODE=0, every read is one chain per channel
-    (qv_batch.fused_decode_entries), as in the JAX package."""
+    (qv_batch.fused_decode_entries), as in the JAX package.  None when the
+    lens walk's shim cannot build."""
     from .qv_batch import fused_decode_entries, fused_decode_entries_seg
 
     with stage("index walk", len(data)):
-        wells, begs, ends_, qvs, eoffs, elens, coffs, ntoks = _index_native(
-            data, coding, off, newv)
+        idx = _index_native(data, coding, off, newv)
+    if idx is None:
+        return None
+    wells, begs, ends_, qvs, eoffs, elens, coffs, ntoks = idx
     ck = None
     if os.environ.get("DXT_SEG_DECODE", "1") == "1":
         with stage("checkpoint walk", len(data)):
@@ -657,11 +761,13 @@ def decode_dexqv_to_quiva(data: bytes, upper: bool = False, device=None) -> byte
     "cpu" / "cuda" / a torch.device -> the batched decode there ("cpu" runs
                     the kernels' plain twins);
     device=None  -> utils/dispatch.device_default(), as the encoder.
-    ``upper`` writes the delTag in upper case (-U).  A container written on
-    a host of the other byte order (``coding.flip``) decodes on the Python
-    walker (``_walk_python``) whatever ``device`` says, as in the JAX
-    package: the native walker and the device chains read little-endian
-    words only.
+    ``upper`` writes the delTag in upper case (-U).  As in the JAX package,
+    a mode whose native shim cannot build falls back: the device decode
+    (which needs the native lens walk) to the native walker, and that to
+    the Python walker (``_walk_python``).  A container written on a host of
+    the other byte order (``coding.flip``) decodes on the Python walker
+    whatever ``device`` says: the native walker and the device chains read
+    little-endian words only.  A CUDA request without CUDA still raises.
     """
     if len(data) < 2:
         raise FormatError("not a .dexqv file (empty or truncated)")
@@ -671,17 +777,16 @@ def decode_dexqv_to_quiva(data: bytes, upper: bool = False, device=None) -> byte
         newv = key in (dq.CONTAINER_KEY, 0xAA55)
         coding, off = dq.parse_qvcoding(mv, 2 if newv else 0)  # legacy: no key
     dev = resolve_device(device)
-    if coding.flip:
-        with stage("decode (Python walker)", len(data)):
-            wells, begs, ends_, qvs, lengths, streams = _walk_python(
-                data, coding, off, newv)
-    elif dev is None:
+    res = None
+    if dev is not None and not coding.flip:
+        res = _decode_entries_device(data, coding, off, newv, dev)
+    if res is None and not coding.flip:
         with stage("decode", len(data)):
-            wells, begs, ends_, qvs, lengths, streams = _walk_native(
-                data, coding, off, newv)
-    else:
-        wells, begs, ends_, qvs, lengths, streams = _decode_entries_device(
-            data, coding, off, newv, dev)
+            res = _walk_native(data, coding, off, newv)
+    if res is None:
+        with stage("decode (Python walker)", len(data)):
+            res = _walk_python(data, coding, off, newv)
+    wells, begs, ends_, qvs, lengths, streams = res
     if upper:                                             # undexqv.c:198-204
         streams = streams.copy()
         streams[TAG] = streams[TAG] - 32

@@ -164,15 +164,44 @@ def assemble_dexqv(coding: QVCoding, wells, begs, ends, qvs,
     out[fpos] = fields
 
     base = ent_off[:-1] + hdr_lens
-    copier = qv_encode_shim().dxt_ragged_copy      # one memcpy per entry
+    copier = _ragged_copier()                       # one memcpy per entry
     for k, (flat, lens) in enumerate(parts):
         lens = part_lens[k]
         total = int(lens.sum())
         if total:
             flat = np.ascontiguousarray(np.asarray(flat, np.uint8)[:total])
-            dst = np.ascontiguousarray(base)
-            lens_c = np.ascontiguousarray(lens)
-            copier(out.ctypes.data, dst.ctypes.data, flat.ctypes.data,
-                   lens_c.ctypes.data, n)
+            if copier is not None:
+                dst = np.ascontiguousarray(base)
+                lens_c = np.ascontiguousarray(lens)
+                copier(out.ctypes.data, dst.ctypes.data, flat.ctypes.data,
+                       lens_c.ctypes.data, n)
+            else:
+                p_starts = np.zeros(n, np.int64)
+                np.cumsum(lens[:-1], out=p_starts[1:])
+                pos = (np.arange(total, dtype=np.int64)
+                       - np.repeat(p_starts, lens) + np.repeat(base, lens))
+                out[pos] = flat
         base = base + lens
     return head + out.tobytes()
+
+
+def write_dexqv(coding: QVCoding, wells, begs, ends, qvs,
+                entry_blobs: list[bytes]) -> bytes:
+    """Assemble the .dexqv image (container key + coding + framed entries)
+    from whole per-entry payloads, entry by entry: the framing of the
+    per-entry encoder (codecs/qv_codec.encode_entry)."""
+    out = bytearray(struct.pack("<H", CONTAINER_KEY))
+    out += qvcoding_bytes(coding)
+    lwell = 0
+    for w, b, e, q, blob in zip(np.asarray(wells).tolist(), np.asarray(begs).tolist(),
+                                np.asarray(ends).tolist(), np.asarray(qvs).tolist(),
+                                entry_blobs):
+        d = w - lwell
+        while d >= 255:
+            out.append(0xFF)
+            d -= 255
+        out.append(d)
+        lwell = w
+        out += struct.pack("<iii", b, e, q)
+        out += blob
+    return bytes(out)

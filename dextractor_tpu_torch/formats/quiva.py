@@ -76,13 +76,23 @@ def parse_quiva(data: bytes) -> QuivaFile:
 
     total = int(lengths.sum())
     streams = np.empty((5, total), np.uint8)
-    if total:                     # one memcpy per line through the shim
-        lib = qv_encode_shim()
-        lens_c = np.ascontiguousarray(lengths)
-        starts6 = starts.reshape(n, 6)
-        for s in range(5):
-            src = np.ascontiguousarray(starts6[:, s + 1].astype(np.int64))
-            lib.dxt_gather_copy(_ptr(streams[s]), _ptr(buf), _ptr(src), _ptr(lens_c), n)
+    starts6 = starts.reshape(n, 6)
+    if total:
+        try:                      # one memcpy per line through the shim
+            lib = qv_encode_shim()
+        except OSError:           # else one index gather per stream
+            lib = None
+        if lib is not None:
+            lens_c = np.ascontiguousarray(lengths)
+            for s in range(5):
+                src = np.ascontiguousarray(starts6[:, s + 1].astype(np.int64))
+                lib.dxt_gather_copy(_ptr(streams[s]), _ptr(buf), _ptr(src), _ptr(lens_c), n)
+        else:
+            run_starts = np.zeros(n, np.int64)
+            np.cumsum(lengths[:-1], out=run_starts[1:])
+            rel = np.arange(total, dtype=np.int64) - np.repeat(run_starts, lengths)
+            for s in range(5):
+                streams[s] = buf[np.repeat(starts6[:, s + 1], lengths) + rel]
 
     wells = np.zeros(n, np.int32)
     begs = np.zeros(n, np.int32)
@@ -111,7 +121,8 @@ def parse_quiva(data: bytes) -> QuivaFile:
 def write_quiva(prefix: bytes, wells, begs, ends, qvs, lengths: np.ndarray,
                 streams: np.ndarray) -> bytes:
     """Assemble a .quiva image from decoded streams (undexqv.c:182-207):
-    the native text assembler copies each entry's header and five lines."""
+    the native text assembler copies each entry's header and five lines;
+    without the shim, one NumPy scatter per part."""
     n = len(wells)
     if n == 0:
         return b""
@@ -123,11 +134,42 @@ def write_quiva(prefix: bytes, wells, begs, ends, qvs, lengths: np.ndarray,
                                      np.asarray(ends).tolist(), np.asarray(qvs).tolist())]
     hdr_lens = np.array([len(h) for h in headers], np.int64)
     headers = b"".join(headers)
+    try:
+        lib = qv_decode_shim()
+    except OSError:
+        return _quiva_text_np(headers, hdr_lens, lengths, streams)
     out = np.empty(len(headers) + n + 5 * int(lengths.sum()) + 5 * n, np.uint8)
-    nw = qv_decode_shim().dxt_quiva_text(
+    nw = lib.dxt_quiva_text(
         _ptr(streams), streams.strides[0], n, _ptr(lengths),
         _ptr(np.frombuffer(headers, np.uint8)), _ptr(hdr_lens), _ptr(out))
     return out[:nw].tobytes()
+
+
+def _quiva_text_np(headers: bytes, hdr_lens, lengths, streams) -> bytes:
+    """The .quiva text of ``write_quiva`` by NumPy scatters: each entry is
+    its header, then five lines of its streams, each ended by a newline."""
+    n = len(lengths)
+    blk_lens = hdr_lens + 1 + 5 * (lengths + 1)
+    blk_off = np.zeros(n + 1, np.int64)
+    np.cumsum(blk_lens, out=blk_off[1:])
+    out = np.full(int(blk_off[-1]), ord("\n"), np.uint8)
+    total_h = int(hdr_lens.sum())
+    if total_h:
+        h_starts = np.zeros(n, np.int64)
+        np.cumsum(hdr_lens[:-1], out=h_starts[1:])
+        pos = (np.arange(total_h, dtype=np.int64) - np.repeat(h_starts, hdr_lens)
+               + np.repeat(blk_off[:-1], hdr_lens))
+        out[pos] = np.frombuffer(headers, np.uint8)
+    total = int(lengths.sum())
+    if total:
+        run_starts = np.zeros(n, np.int64)
+        np.cumsum(lengths[:-1], out=run_starts[1:])
+        rel = np.arange(total, dtype=np.int64) - np.repeat(run_starts, lengths)
+        base = blk_off[:-1] + hdr_lens + 1
+        for s in range(5):
+            line_base = np.repeat(base + s * (lengths + 1), lengths)
+            out[line_base + rel] = streams[s]
+    return out.tobytes()
 
 
 def _ptr(a):

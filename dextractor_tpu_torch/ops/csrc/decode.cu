@@ -15,17 +15,21 @@
 // interleaved tiles, no advance or shift networks.
 //
 // Bound on the H100.  A Huffman chain is serial: the position of symbol j+1 is
-// known only after symbol j is looked up.  So K4 and K5 are bound by the
-// latency of one chain step (a table lookup in shared memory, a few integer
-// operations), times the longest chain, not by bytes: a 2,000-symbol row is
-// ~1 KB of words in and 2 KB out.  Design: one thread per chain, chains of
-// all C channels in one launch (blockIdx.y is the channel, each with its own
-// rectangle width); the L1 tables and, when it fits in 32 KB, the L2 table
-// sit in shared memory; each thread keeps its 64-bit window (two words) in
-// registers and loads the next word only when the position crosses into it,
-// so most steps touch no global memory.  Symbols leave as 32-bit stores of
-// four, and each chain writes its whole output row, zeros (or padding
-// tokens) past its end included.  K6 is bound by bytes (it writes every
+// known only after symbol j is looked up.  So a chain per thread is bound by
+// the latency of one chain step (a table lookup in shared memory, a few
+// integer operations), times the longest chain, not by bytes: a 2,000-symbol
+// row is ~1 KB of words in and 2 KB out.  K4's design: one thread per chain,
+// chains of all C channels in one launch (blockIdx.y is the channel, each
+// with its own rectangle width); the L1 tables and, when it fits in 32 KB,
+// the L2 table sit in shared memory; each thread keeps its 64-bit window
+// (two words) in registers and loads the next word only when the position
+// crosses into it, so most steps touch no global memory.  Symbols leave as
+// 32-bit stores of four, and each chain writes its whole output row, zeros
+// past its end included.  K5 decodes a chain with a whole warp whose lanes
+// speculate on slices of its bits and synchronise (decode_run_kernel), so
+// its time is a few slices' steps per 4,096 bits of a chain, not the
+// chain's steps, and a batch fills the card with warps instead of threads;
+// it writes padding tokens past each chain's end.  K6 is bound by bytes (it writes every
 // column of its rows once): one block per row fills rchar (and -1 for the
 // tags), then a block scan of the run lengths over 1,024-token chunks,
 // carried across chunks, places literal k at column cumsum(runs)[k] + k and
@@ -165,7 +169,69 @@ decode_plain_kernel(PlainChannels ch, const int* __restrict__ rlens,
   last_out[r] = last;
 }
 
-__global__ void __launch_bounds__(kChainThreads)
+// K5: one warp per run chain.  The chain's bits are walked in windows of
+// 32 lanes x kLaneBits bits (the GPU Huffman decode of "Revisiting Huffman
+// Coding", arXiv 2010.10039, and arXiv 2201.09118).  In a window, lane i
+// owns the bits [w0 + i * kLaneBits, w0 + (i + 1) * kLaneBits) and decodes
+// codes from its start until it passes its end (or kLaneCodes codes: a
+// 0-bit code cannot hold it forever).  A state is (bit position, phase):
+// phase 0 reads a run code, phase 1 a literal code.
+//  1. Speculate: lane 0 starts at the chain's true state, every other lane
+//     at its first bit in the run phase.
+//  2. Synchronise: each lane takes its left neighbour's exit state as its
+//     start and decodes again, until no start changes (a Huffman decoder
+//     usually falls onto the true code boundaries within a few symbols; a
+//     code that never does, as one whose every code is 8 bits long, settles
+//     lane by lane in at most 32 rounds, the serial chain's work).
+//  3. Scan: a warp scan of the lanes' run codes (tokens) and symbols (each
+//     run in full, one per literal) gives each lane its first token index
+//     and its symbols emitted before.
+//  4. Write: each lane decodes its codes again from its settled start and
+//     writes its tokens, applying the serial chain's rules where it would:
+//     a literal only while emitted + run < rlen, the chain's end at
+//     emitted == rlen or after max_tokens tokens.  A lane past the end
+//     writes nothing, so junk read past the row (its last word repeated)
+//     never lands.
+// The next window starts at the last lane's exit state.  The L1 tables, and
+// the L2 table up to kSmemL2Max entries, sit in shared memory.
+constexpr int kRunWarps = 4;                   // chains per block
+constexpr int kLaneBits = 128;                 // bits a lane owns in a window
+constexpr int kLaneCodes = 2 * kLaneBits + 2;  // codes a lane decodes at most
+
+struct RunChain {
+  Window win;
+  const int* run1;
+  const int* sym1;
+  const int* l2;
+  long long l2_len;
+  int subw, lmax, nsignal;
+
+  // One code at pos: its value (run length or literal), the position past
+  // it, and the width of its last emission (16 after a run escape, 8 after
+  // a literal escape).
+  __device__ __forceinline__ int step(long long& pos, int phase, int& width) {
+    const uint64_t w = win.at(pos);
+    const int p = static_cast<int>(pos & 31);
+    const int e = lookup(phase ? sym1 : run1, l2, l2_len, subw, lmax, bits_at(w, p, 16));
+    const int nb = (e >> 9) & 31;
+    const int sym = e & 511;
+    if (phase == 0 && sym == 255) {  // run escape: a 16-bit run length follows
+      pos += nb + 16;
+      width = 16;
+      return bits_at(w, p + nb, 16);
+    }
+    if (phase == 1 && sym == nsignal) {  // literal escape: 8 bits follow
+      pos += nb + 8;
+      width = 8;
+      return bits_at(w, p + nb, 8);
+    }
+    pos += nb;
+    width = nb;
+    return sym;
+  }
+};
+
+__global__ void __launch_bounds__(32 * kRunWarps)
 decode_run_kernel(const uint32_t* __restrict__ rect, long long k,
                   const int* __restrict__ rlens, const int* __restrict__ pos0,
                   const int* __restrict__ carry, const int* __restrict__ f1r,
@@ -182,63 +248,139 @@ decode_run_kernel(const uint32_t* __restrict__ rect, long long k,
   }
   if (l2_smem) stage_l2(s_l2, f2, f2_len);
   __syncthreads();
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = blockIdx.x * kRunWarps + (threadIdx.x >> 5);
   if (row >= n_rows) return;
+  const int lane = threadIdx.x & 31;
+  constexpr unsigned kAll = 0xffffffffu;
 
-  const int* l2 = l2_smem ? s_l2 : f2;
-  Window win{rect + row * k, k, -2, 0u, 0u};
+  RunChain ch{Window{rect + row * k, k, -2, 0u, 0u}, s_run, s_sym, l2_smem ? s_l2 : f2,
+              f2_len, subw, lmax, nsignal};
   const long long rlen = rlens[row];
-  const int cr = carry ? carry[row] : -1;
   int* rr = runs + row * max_tokens;
   int* lr = lits + row * max_tokens;
-  long long pos = pos0 ? pos0[row] : 0;
-  long long emitted = 0;
-  long long tok = 0;  // tokens decoded
-  int last = 0;
-  for (long long t = 0; t < max_tokens && emitted < rlen; ++t) {
-    uint64_t w = win.at(pos);
-    int p = static_cast<int>(pos & 31);
-    const int e = lookup(s_run, l2, f2_len, subw, lmax, bits_at(w, p, 16));
-    const int nb = (e >> 9) & 31;
-    bool resc = (e & 511) == 255;  // a run escape: 16-bit run length follows
-    long long run = resc ? bits_at(w, p + nb, 16) : (e & 511);
-    if (t == 0 && cr >= 0) {  // resume inside a run: the stream sits at the literal
-      run = cr;
-      resc = false;
-    } else {
-      pos += nb + (resc ? 16 : 0);
+  long long pos = pos0 ? pos0[row] : 0;  // the chain's state between windows
+  int phase = 0;
+  long long tok = 0, em = 0;             // tokens begun, symbols emitted
+  long long end_pos = pos;
+  int end_last = 0;
+  bool done = rlen <= 0 || max_tokens <= 0;
+  const int cr = carry ? carry[row] : -1;
+  if (!done && cr >= 0) {  // resume inside a run: token 0 is (carry, literal at pos)
+    tok = 1;
+    em = cr;
+    phase = 1;
+    if (lane == 0) rr[0] = cr;
+    if (em >= rlen) {  // no literal: the width of the run code at pos, unread
+      long long p = pos;
+      ch.step(p, 0, end_last);
+      if (lane == 0) lr[0] = -1;
+      done = true;
     }
-    last = resc ? 16 : nb;
-    const long long em1 = emitted + run < rlen ? emitted + run : rlen;
-    int lit = -1;
-    if (em1 < rlen) {
-      w = win.at(pos);
-      p = static_cast<int>(pos & 31);
-      const int e2 = lookup(s_sym, l2, f2_len, subw, lmax, bits_at(w, p, 16));
-      const int snb = (e2 >> 9) & 31;
-      lit = e2 & 511;
-      if (lit == nsignal) {
-        lit = bits_at(w, p + snb, 8);
-        pos += snb + 8;
-        last = 8;
-      } else {
-        pos += snb;
-        last = snb;
-      }
-      emitted = em1 + 1;
-    } else {
-      emitted = em1;
-    }
-    rr[t] = static_cast<int>(run);
-    lr[t] = lit;
-    tok = t + 1;
   }
-  for (long long t = tok; t < max_tokens; ++t) {  // padding tokens
+
+  while (!done) {
+    const long long w0 = pos;
+    const long long lane_end = w0 + static_cast<long long>(lane + 1) * kLaneBits;
+    long long spos = lane == 0 ? pos : w0 + static_cast<long long>(lane) * kLaneBits;
+    int sph = lane == 0 ? phase : 0;
+    long long xpos;
+    int xph, n_tok;
+    long long n_em;
+    for (;;) {  // speculate, then synchronise until no start changes
+      xpos = spos;
+      xph = sph;
+      n_tok = 0;
+      n_em = 0;
+      for (int c = 0; c < kLaneCodes && xpos < lane_end; ++c) {
+        int width;
+        const int val = ch.step(xpos, xph, width);
+        if (xph == 0) {
+          ++n_tok;
+          n_em += val;
+        } else {
+          ++n_em;
+        }
+        xph ^= 1;
+      }
+      long long npos = __shfl_up_sync(kAll, xpos, 1);
+      int nph = __shfl_up_sync(kAll, xph, 1);
+      if (lane == 0) {
+        npos = spos;
+        nph = sph;
+      }
+      const bool moved = npos != spos || nph != sph;
+      spos = npos;
+      sph = nph;
+      if (!__any_sync(kAll, moved)) break;
+    }
+    // exclusive scans of the lanes' tokens and symbols
+    long long t_inc = n_tok, e_inc = n_em;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long t = __shfl_up_sync(kAll, t_inc, d);
+      const long long e = __shfl_up_sync(kAll, e_inc, d);
+      if (lane >= d) {
+        t_inc += t;
+        e_inc += e;
+      }
+    }
+    long long tc = tok + t_inc - n_tok, ec = em + e_inc - n_em;
+    // the write pass
+    bool ends = false;
+    long long fpos = 0;
+    int flast = 0;
+    {
+      long long p = spos;
+      int ph = sph;
+      for (int c = 0; c < kLaneCodes && p < lane_end; ++c) {
+        if (ph == 0 ? (tc >= max_tokens || ec >= rlen) : (ec >= rlen || tc > max_tokens)) {
+          break;  // past the chain's end
+        }
+        int width;
+        const int val = ch.step(p, ph, width);
+        if (ph == 0) {
+          rr[tc] = val;
+          ++tc;
+          ec += val;
+          if (ec >= rlen) {  // the last token: its run reaches rlen, no literal
+            lr[tc - 1] = -1;
+            ends = true;
+          }
+        } else {
+          lr[tc - 1] = val;
+          ++ec;
+          ends = ec >= rlen || tc >= max_tokens;
+        }
+        if (ends) {
+          fpos = p;
+          flast = width;
+          break;
+        }
+        ph ^= 1;
+      }
+    }
+    const unsigned enders = __ballot_sync(kAll, ends);
+    if (enders) {
+      const int src = __ffs(enders) - 1;
+      end_pos = __shfl_sync(kAll, fpos, src);
+      end_last = __shfl_sync(kAll, flast, src);
+      tok = __shfl_sync(kAll, tc, src);
+      done = true;
+    } else {
+      pos = __shfl_sync(kAll, xpos, 31);
+      phase = __shfl_sync(kAll, xph, 31);
+      tok += __shfl_sync(kAll, t_inc, 31);
+      em += __shfl_sync(kAll, e_inc, 31);
+    }
+  }
+  for (long long t = tok + lane; t < max_tokens; t += 32) {  // padding tokens
     rr[t] = 0;
     lr[t] = -1;
   }
-  bits_out[row] = static_cast<int>(pos);
-  last_out[row] = last;
+  if (lane == 0) {
+    bits_out[row] = static_cast<int>(end_pos);
+    last_out[row] = end_last;
+  }
 }
 
 __global__ void __launch_bounds__(kExpandThreads)
@@ -340,8 +482,8 @@ extern "C" int dxt_decode_run(const void* rect, long long k, const void* rlens, 
   if (n_rows <= 0) return 0;
   const bool l2_smem = subw > 0 && f2_len <= kSmemL2Max;
   const size_t smem = l2_smem ? static_cast<size_t>(f2_len) * sizeof(int) : 0;
-  decode_run_kernel<<<static_cast<unsigned>((n_rows + kChainThreads - 1) / kChainThreads),
-                      kChainThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  decode_run_kernel<<<static_cast<unsigned>((n_rows + kRunWarps - 1) / kRunWarps),
+                      32 * kRunWarps, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(rect), k, static_cast<const int*>(rlens),
       static_cast<const int*>(pos0), static_cast<const int*>(carry),
       static_cast<const int*>(f1r), static_cast<const int*>(f1s), static_cast<const int*>(f2),

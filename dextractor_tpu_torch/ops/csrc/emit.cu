@@ -14,12 +14,12 @@
 // run_emissions), and K8 packs the planes into words.  K9 is one pass over
 // the flat elements with the 1 KB table in shared memory, four indices a
 // thread and step; an index is masked to its low byte, so an input outside
-// the function's domain [0, 256) reads the table and not past it.  K8 is K1
-// without the table: the same block scan, shared word window and flush, on
-// the emission planes, and it writes every word of its (N, M+1) output,
-// zeros past a row's last bit.  Both are bound by bytes: K9 reads 1 (u8) or
-// 4 (int32) bytes and writes 4 per element, K8 reads 8 bytes a slot and
-// writes 4 a word.
+// the function's domain [0, 256) reads the table and not past it.  K8
+// packs the emission planes into every word of its (N, M+1) output, zeros
+// past a row's last bit, with each row cut into tiles across blocks (see
+// pack_words_kernel).  Both are bound by bytes: K9 reads 1 (u8) or 4 (int32)
+// bytes and writes 4 per element, K8 reads 8 bytes a slot and writes 4 a
+// word.
 //
 // What they compute is the JAX package's XLA formulation, not its Pallas
 // bodies: bitstream_jax.plain_emissions / run_emissions + pack_words (the
@@ -332,48 +332,190 @@ pack_tags_kernel(const uint8_t* __restrict__ tags, const uint8_t* __restrict__ d
   for (long long b = ((carry + 3) >> 2) + threadIdx.x; b < wbytes; b += kThreads) dst[b] = 0;
 }
 
-// K8: emissions (v, n) of one row per block, MSB-first at bit offset
-// cumsum(n) - n (QV.c:404-422); n in [0, 32] and v < 2^n.  Every word of
-// the row is written: the packed ones, then zeros up to mw.
-__global__ void __launch_bounds__(kThreads)
-pack_words_kernel(const uint32_t* __restrict__ v, const int* __restrict__ n,
-                  uint32_t* __restrict__ words, long long m, long long mw) {
-  constexpr int kStage = kChunk + 2;  // <= 32 bits per slot, plus the carry word
-  __shared__ uint32_t s_stage[kStage];
-  __shared__ int s_warp[kWarps];
+// K8: emissions (v, n), MSB-first at bit offset cumsum(n) - n of their row
+// (QV.c:404-422); n in [0, 32] and v < 2^n.  Every word of the (N, mw)
+// output is written once: the packed ones, then zeros up to mw.
+//
+// Design (the first of the two the redesign allowed: one pass with a
+// decoupled look-back).  A row is cut into tiles of kTile slots, and each
+// block takes one tile, so the widest long-read bucket (8 rows of 122,881
+// slots) runs 248 blocks instead of 8.  Blocks take their tiles in ticket
+// order from an atomic counter, row-major, so a tile never waits on one
+// that has not started.  A tile places its emissions in shared words from
+// local bit 0 (a block scan of the widths gives the offsets), publishes its
+// aggregate, then looks back over its row's earlier tiles for its
+// exclusive prefix, and publishes its inclusive prefix.  The look-back
+// state is the pair (bit count, last <= 32 bits right-aligned), whose
+// combine is associative: a word that straddles tiles, even three or more
+// when tiles hold fewer than 32 bits (zero-width slots are legal), is
+// written whole by the tile that holds its last bit, from the carried bits
+// and its own.  The row's last tile writes the partial last word and the
+// zeros.  Flags carry the launch's epoch, so the tile states need no
+// memset between launches; the block that finishes last resets the ticket
+// counter for the next launch on the stream.  Each tile state is
+// published as its payload, a fence, then its flag with release order;
+// readers load the flag with acquire order and the payload past L1.
+constexpr int kTileThreads = 256;
+constexpr int kTileItems = 16;
+constexpr int kTile = kTileThreads * kTileItems;  // slots per tile
+constexpr unsigned kAgg = 1u, kInc = 2u;           // flag = epoch << 2 | status
 
-  const long long row = blockIdx.x;
+struct TileState {   // one per tile, 32 bytes
+  unsigned flag, agg_n, agg_last, inc_n, inc_last, pad[3];
+};
+
+struct Carry {       // (bit count, last min(count, 32) bits right-aligned)
+  unsigned n, last;
+};
+
+// The stream a followed by the stream b.
+__device__ __forceinline__ Carry combine(Carry a, Carry b) {
+  if (b.n >= 32) return {a.n + b.n, b.last};
+  if (b.n == 0) return a;
+  return {a.n + b.n, (a.last << b.n) | b.last};
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.u32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
+}
+
+__global__ void __launch_bounds__(kTileThreads)
+pack_words_kernel(const uint32_t* __restrict__ v, const int* __restrict__ n,
+                  uint32_t* __restrict__ words, long long m, long long mw,
+                  int tiles_per_row, long long n_tiles, unsigned epoch,
+                  TileState* __restrict__ states, unsigned long long* __restrict__ counters) {
+  __shared__ uint32_t s_loc[kTile + 1];  // <= 32 bits per slot, plus one word
+  __shared__ int s_warp[kTileThreads / 32];
+  __shared__ long long s_ticket;
+  __shared__ Carry s_excl;
+
+  if (threadIdx.x == 0) s_ticket = static_cast<long long>(atomicAdd(&counters[0], 1ULL));
+  for (int i = threadIdx.x; i <= kTile; i += kTileThreads) s_loc[i] = 0u;
+  __syncthreads();
+  const long long ticket = s_ticket;
+  const long long row = ticket / tiles_per_row;
+  const int k = static_cast<int>(ticket % tiles_per_row);
+  const long long lo = static_cast<long long>(k) * kTile;
   const uint32_t* vr = v + row * m;
   const int* nr = n + row * m;
-  uint32_t* dst = words + row * mw;
-  for (int i = threadIdx.x; i < kStage; i += kThreads) s_stage[i] = 0u;
+
+  uint32_t val[kTileItems];
+  int w[kTileItems];
+  int tot = 0;
+#pragma unroll
+  for (int j = 0; j < kTileItems; ++j) {
+    const long long col = lo + threadIdx.x * kTileItems + j;
+    val[j] = col < m ? vr[col] : 0u;
+    w[j] = col < m ? nr[col] : 0;
+    tot += w[j];
+  }
+  int agg;
+  int bit = dxt::block_scan<kTileThreads>(tot, 0, SumOp(), s_warp, &agg);
+#pragma unroll
+  for (int j = 0; j < kTileItems; ++j) {
+    if (w[j]) put_bits(s_loc, bit, val[j], w[j]);
+    bit += w[j];
+  }
   __syncthreads();
 
-  long long carry = 0;  // bits emitted by earlier chunks
-  for (long long c0 = 0; c0 < m; c0 += kChunk) {
-    uint32_t val[kItems];
-    int w[kItems];
-    int tot = 0;
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const long long col = c0 + threadIdx.x * kItems + k;
-      val[k] = col < m ? vr[col] : 0u;
-      w[k] = col < m ? nr[col] : 0;
-      tot += w[k];
+  TileState* st = states + ticket;
+  if (threadIdx.x < 32) {
+    // the tile's aggregate: its bit count and last <= 32 bits
+    const unsigned a_n = static_cast<unsigned>(agg);
+    unsigned a_last = 0u;
+    if (a_n) {
+      const unsigned w1 = (a_n - 1) >> 5, r = a_n & 31;
+      a_last = r ? (s_loc[w1] >> (32 - r)) | (w1 ? s_loc[w1 - 1] << r : 0u) : s_loc[w1];
     }
-    int total;
-    int bit = static_cast<int>(carry & 31) + block_scan(tot, 0, SumOp(), s_warp, &total);
+    const Carry a{a_n, a_last};
+    Carry excl{0u, 0u};
+    const int lane = threadIdx.x;
+    if (k > 0) {
+      if (lane == 0) {
+        st->agg_n = a.n;
+        st->agg_last = a.last;
+        __threadfence();
+        store_release(&st->flag, epoch << 2 | kAgg);
+      }
+      // look back a warp's width of tiles at a time: lane j reads tile
+      // k - 1 - (base + j) of the row; wait until all it needs have a flag
+      // of this launch, then combine up to the nearest inclusive prefix
+      for (int base = 0; base < k; base += 32) {
+        const int j = k - 1 - base - lane;  // tile index in the row, < 0: none
+        const TileState* p = states + (ticket - k) + (j < 0 ? 0 : j);
+        unsigned f = 0u;
+        for (;;) {
+          f = j < 0 ? (epoch << 2 | kInc) : load_acquire(&p->flag);
+          const bool ready = (f >> 2) == epoch && (f & 3u);
+          if (__all_sync(0xffffffffu, ready)) break;
+        }
+        const bool inc = j >= 0 && (f & 3u) == kInc;
+        Carry c{0u, 0u};
+        if (j >= 0) {
+          c = inc ? Carry{__ldcg(&p->inc_n), __ldcg(&p->inc_last)}
+                  : Carry{__ldcg(&p->agg_n), __ldcg(&p->agg_last)};
+        }
+        const unsigned incs = __ballot_sync(0xffffffffu, inc);
+        const int stop = incs ? __ffs(incs) - 1 : 31;  // the nearest inclusive prefix
+        if (lane > stop) c = Carry{0u, 0u};
+        // lane 0 gathers lanes 0..stop; a higher lane is earlier in the stream
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      if (w[k]) put_bits(s_stage, bit, val[k], w[k]);
-      bit += w[k];
+        for (int d = 1; d < 32; d <<= 1) {
+          const Carry o{__shfl_down_sync(0xffffffffu, c.n, d),
+                        __shfl_down_sync(0xffffffffu, c.last, d)};
+          if (lane + d < 32) c = combine(o, c);
+        }
+        c.n = __shfl_sync(0xffffffffu, c.n, 0);
+        c.last = __shfl_sync(0xffffffffu, c.last, 0);
+        excl = combine(c, excl);
+        if (incs) break;
+      }
     }
-    const long long end = carry + total;
-    flush_words(s_stage, dst, carry, end);
-    carry = end;
+    if (lane == 0) {
+      const Carry inc = combine(excl, a);
+      st->inc_n = inc.n;
+      st->inc_last = inc.last;
+      __threadfence();
+      store_release(&st->flag, epoch << 2 | kInc);
+      s_excl = excl;
+    }
   }
-  if (threadIdx.x == 0 && (carry & 31)) dst[carry >> 5] = s_stage[0];
-  for (long long i = ((carry + 31) >> 5) + threadIdx.x; i < mw; i += kThreads) dst[i] = 0u;
+  __syncthreads();
+
+  // words [s >> 5, e >> 5): local bits [32i - o, 32i - o + 32) with the
+  // carried bits before local bit 0
+  const Carry excl = s_excl;
+  const long long s = excl.n, e = s + agg;
+  const int o = static_cast<int>(s & 31);
+  const bool last_tile = k == tiles_per_row - 1;
+  const long long first = s >> 5;
+  const long long n_words = (e >> 5) - first + (last_tile && (e & 31) ? 1 : 0);
+  uint32_t* dst = words + row * mw;
+  for (long long i = threadIdx.x; i < n_words; i += kTileThreads) {
+    const uint32_t cur = s_loc[i];
+    const uint32_t prev = i == 0 ? excl.last : s_loc[i - 1];
+    dst[first + i] = o ? (prev << (32 - o)) | (cur >> o) : cur;
+  }
+  if (last_tile) {
+    for (long long i = ((e + 31) >> 5) + threadIdx.x; i < mw; i += kTileThreads) dst[i] = 0u;
+  }
+
+  // the last block to finish resets the ticket counter for the next launch
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(&counters[1], 1ULL) == static_cast<unsigned long long>(n_tiles - 1)) {
+      counters[0] = 0ULL;
+      counters[1] = 0ULL;
+      __threadfence();
+    }
+  }
 }
 
 __device__ __forceinline__ void load4(const uint8_t* p, long long q, int (&d)[4]) {
@@ -475,13 +617,23 @@ extern "C" int dxt_pack_tags(const void* tags, const void* dels, const void* len
   return static_cast<int>(cudaGetLastError());
 }
 
+// scratch: two u64 counters, then one 32-byte tile state per tile (n_rows
+// * max(1, ceil(m / 4096)) tiles), zeroed once when allocated and used by
+// one stream; epoch: in [1, 2^30) and unlike the epoch of the launch before
+// on the same scratch.
 extern "C" int dxt_pack_words(const void* v, const void* n, void* words, int n_rows,
-                              long long m, void* stream) {
+                              long long m, void* scratch, unsigned epoch, void* stream) {
   if (n_rows <= 0) return 0;
-  pack_words_kernel<<<static_cast<unsigned>(n_rows), kThreads, 0,
+  const long long tiles = n_rows * (m > 0 ? (m + kTile - 1) / kTile : 1LL);
+  if (tiles > 0x7fffffffLL || epoch == 0 || epoch >= (1u << 30)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto* counters = static_cast<unsigned long long*>(scratch);
+  pack_words_kernel<<<static_cast<unsigned>(tiles), kTileThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(v), static_cast<const int*>(n),
-      static_cast<uint32_t*>(words), m, m + 1);
+      static_cast<uint32_t*>(words), m, m + 1, static_cast<int>(tiles / n_rows), tiles, epoch,
+      reinterpret_cast<TileState*>(counters + 2), counters);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,6 +21,26 @@ from . import bitstream_torch as bt
 from .emit import _check, _launch, _route
 
 _MAX_ROWS = (1 << 31) - 1     # rows are the grid's x dimension
+PACK_TILE = 4096              # slots per K8 tile (kTile in emit.cu)
+_MAX_SLOTS = 1 << 27          # K8 counts a row's bits in 32 bits
+_EPOCHS = 1 << 30             # K8's epochs are 30 bits
+_PACK_SCRATCH = {}            # (device, stream) -> [tile states, last epoch]
+
+
+def _pack_scratch(dev, n_tiles: int):
+    """K8's scratch on the current stream of ``dev`` (two u64 counters and
+    a 32-byte state per tile), zeroed once when allocated, and the next
+    launch's epoch.  The tile states carry the epoch of the launch that
+    wrote them, so no launch has to clear them; a new scratch is allocated
+    when the epochs run out."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    need = 16 + 32 * n_tiles
+    ent = _PACK_SCRATCH.get(key)
+    if ent is None or ent[0].numel() < need or ent[1] + 1 >= _EPOCHS:
+        size = max(need, 2 * ent[0].numel() if ent else 0)
+        ent = _PACK_SCRATCH[key] = [torch.zeros(size, dtype=torch.uint8, device=dev), 0]
+    ent[1] += 1
+    return ent[0], ent[1]
 
 
 def lut_gather(data, lut):
@@ -63,15 +83,21 @@ def pack_words(v, n):
     if not isinstance(v, torch.Tensor) or v.dim() != 2:
         raise ValueError("v: expected an (N, M) tensor")
     rows, m = v.shape
-    if rows > _MAX_ROWS:
-        raise ValueError(f"{rows} rows: the kernel takes at most {_MAX_ROWS}")
+    if rows > _MAX_ROWS or m >= _MAX_SLOTS:
+        raise ValueError(f"{rows} rows of {m} slots: the kernel takes at most {_MAX_ROWS} "
+                         f"rows of fewer than {_MAX_SLOTS} slots")
     _check("v", v, torch.int32, (rows, m), v.device)
     _check("n", n, torch.int32, (rows, m), v.device)
     if not _route(v):
         return pack_words_ref(v, n)
     words = torch.empty((rows, m + 1), dtype=torch.int32, device=v.device)
     if rows:
-        _launch("pack_words", dispatch.kernels().dxt_pack_words, v, n, words, rows, m)
+        n_tiles = rows * max(1, -(-m // PACK_TILE))
+        if n_tiles >= 1 << 31:
+            raise ValueError(f"{n_tiles} tiles: the kernel takes fewer than 2^31")
+        scratch, epoch = _pack_scratch(v.device, n_tiles)
+        _launch("pack_words", dispatch.kernels().dxt_pack_words, v, n, words, rows, m,
+                scratch, epoch)
     return words
 
 

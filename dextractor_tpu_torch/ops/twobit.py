@@ -61,6 +61,18 @@ UPPER_LUT = np.frombuffer(b"ACGT", np.uint8).copy()
 ARROW_LETTER_LUT = np.frombuffer(b"1234", np.uint8).copy()
 
 
+def pack_2bit_np(codes: np.ndarray) -> np.ndarray:
+    """Pack (N, L) numeric codes (values 0..3) into (N, L//4) bytes, the
+    first code in bits 7-6; L must be a multiple of 4."""
+    n, l = codes.shape
+    if l % 4:
+        raise ValueError("pad L to a multiple of 4")
+    quads = codes.reshape(n, l // 4, 4).astype(np.uint8)
+    return (
+        (quads[..., 0] << 6) | (quads[..., 1] << 4) | (quads[..., 2] << 2) | quads[..., 3]
+    )
+
+
 def unpack_2bit_np(packed: np.ndarray) -> np.ndarray:
     """Unpack (N, C) bytes into (N, 4*C) numeric codes 0..3."""
     n, c = packed.shape

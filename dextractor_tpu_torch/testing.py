@@ -186,10 +186,11 @@ def step_batch(quiva: bytes):
     return (streams, lengths.astype(np.int32), sym, run, rchars, nlut.copy()), run_on
 
 
-def widest_bucket_batch(quiva: bytes):
-    """(qv_encode_step arguments, run_on) of the widest bucket of the device
-    encode of a .quiva image, built as ``codecs.qv_codec`` builds it
-    (``encode_buckets``, ``bucket_rect``), with the whole file's coding."""
+def widest_bucket_batch(quiva: bytes, index: int = -1):
+    """(qv_encode_step arguments, run_on) of the widest bucket (or the
+    ``index``-th in order of width) of the device encode of a .quiva image,
+    built as ``codecs.qv_codec`` builds it (``encode_buckets``,
+    ``bucket_rect``), with the whole file's coding."""
     from .codecs.qv_codec import (bucket_rect, create_qvcoding, encode_buckets,
                                   scan_quiva, step_tables)
     from .formats.quiva import parse_quiva
@@ -197,7 +198,7 @@ def widest_bucket_batch(quiva: bytes):
     q = parse_quiva(quiva)
     coding = create_qvcoding(scan_quiva(q), q.prefix, False)
     sym, run, rchars, nlut, run_on = step_tables(coding)
-    width, sel = encode_buckets(q.lengths)[-1]
+    width, sel = encode_buckets(q.lengths)[index]
     rect, lengths = bucket_rect(q, sel, width, False)
     return (rect, lengths, sym, run, rchars, nlut.copy()), run_on
 
@@ -244,14 +245,16 @@ def batch_to(args, device):
 def edge_schemes() -> dict:
     """Schemes for the decode edge cases: codes of at most 8, 12 and 16
     bits, a truncated type-2 scheme whose rare symbols escape, a
-    single-symbol scheme (0-bit codes) and a run scheme whose runs over 3
-    take long codes and 255 and over the 16-bit escape.  name ->
+    single-symbol scheme (0-bit codes), a run scheme whose runs over 3
+    take long codes and 255 and over the 16-bit escape, and a symbol and a
+    run scheme whose every code is 8 bits long (flat histograms).  name ->
     (scheme, alphabet size)."""
     from .ops.huffman import make_scheme
 
     rng = np.random.default_rng(5)
     h = {k: np.zeros(256, np.int64) for k in
-         ("lmax8", "lmax12", "lmax16", "type2", "zero_bit", "run")}
+         ("lmax8", "lmax12", "lmax16", "type2", "zero_bit", "run", "flat8",
+          "run_flat8")}
     h["lmax8"][:30] = 50
     h["lmax12"][:44] = rng.integers(1, 100, 44)
     h["lmax16"][:] = rng.integers(1, 100, 256)
@@ -260,8 +263,10 @@ def edge_schemes() -> dict:
     h["zero_bit"][0] = 1000
     h["run"][:] = 1
     h["run"][:4] = 50_000
+    h["flat8"][:] = 7
+    h["run_flat8"][:] = 7
     sizes = {"lmax8": 30, "lmax12": 44, "lmax16": 256, "type2": 256,
-             "zero_bit": 1, "run": 256}
+             "zero_bit": 1, "run": 256, "flat8": 256, "run_flat8": 256}
     return {k: (make_scheme(v), sizes[k]) for k, v in h.items()}
 
 
@@ -280,8 +285,12 @@ def decode_edge_cases(device, long_len: int = 70_000, row_len: int = 2500):
     ``long_len``-symbol row; plain chains resumed at ``pos0``; run chains
     with runs over 255 (the 16-bit escape) and up to 65,535, type-2
     literal escapes, and chains resumed at ``pos0`` inside a run
-    (``carry``).  Rows of 0 and 1 symbols throughout.  The plain rows and
-    the type-2 run rows are up to ``row_len`` symbols wide.  Together the
+    (``carry``); run chains whose every code is 8 bits long (no
+    resynchronisation: a decoder that starts on a code boundary in the
+    wrong phase never meets the true path) and run chains whose every run
+    and literal is an escape.  Rows of 0 and 1 symbols throughout.  The
+    plain rows, the type-2 and the 8-bit run rows are up to ``row_len``
+    symbols wide.  Together the
     cases hold L2 tables of more and of fewer entries than
     ``ops.decode_chains.SMEM_L2_MAX``."""
     import torch
@@ -361,10 +370,10 @@ def decode_edge_cases(device, long_len: int = 70_000, row_len: int = 2500):
         d[d == rchar] = rchar
         return d
 
-    def run_case(name, sym, data, lengths, starts=None, carry=None):
+    def run_case(name, sym, data, lengths, starts=None, carry=None, run="run"):
         n, l = data.shape
         sl = tensor(bt.scheme_luts(sch[sym][0])[None])
-        rlut = tensor(bt.scheme_luts(sch["run"][0], run=True)[None])
+        rlut = tensor(bt.scheme_luts(sch[run][0], run=True)[None])
         rc = tensor([rchar])
         dd, ln = tensor(data[None], torch.uint8), tensor(lengths)
         words, t, lg = bt.encode_run_ref(dd, ln, sl, rlut, rc)
@@ -375,7 +384,7 @@ def decode_edge_cases(device, long_len: int = 70_000, row_len: int = 2500):
             cut = starts if carry is None else starts + np.maximum(carry, 0)
             pos0 = bt.encode_run_ref(dd, tensor(cut), sl, rlut, rc)[1][0]
         kw = int(((t[0].long() + 31) >> 5).max()) + 1
-        f1, f2, subws, lmax = tables(["run", sym])
+        f1, f2, subws, lmax = tables([run, sym])
         rows = np.full((n, l), rchar, np.uint8)
         for r in range(n):
             rows[r, :rl[r]] = data[r, starts[r]:lengths[r]]
@@ -424,6 +433,29 @@ def decode_edge_cases(device, long_len: int = 70_000, row_len: int = 2500):
     # type-2 literal escapes
     run_case("run: type-2 literal escapes", "type2", run_rows(4, w, 0.6),
              np.array([w, 1, 0, w * 18 // 25]))
+    # every code 8 bits long: runs, literals and 16-bit run escapes, also
+    # resumed at pos0 after a literal (byte-aligned) and inside a run
+    data = run_rows(5, w, 0.5)
+    data[3, ::301] = rchar                 # a few runs over 255: escapes
+    data[3, w // 5: w // 5 + 2 * w // 3] = rchar
+    data[3, w // 5 + 2 * w // 3] = 200
+    lengths = np.array([w, w - 3, 1, w, w * 3 // 5])
+    run_case("run: fixed 8-bit codes", "flat8", data, lengths, run="run_flat8")
+    starts = np.array([w // 2, 0, 0, w // 5 + w // 3, 11])
+    data[0, w // 2 - 1] = data[4, 10] = 200    # resumed right after a literal
+    carry = np.full(5, -1, np.int64)           # row 3: inside a run
+    carry[3] = int(np.flatnonzero(data[3, starts[3]:] != rchar)[0])
+    run_case("run: fixed 8-bit codes, resumed at pos0", "flat8", data, lengths,
+             starts, carry, run="run_flat8")
+    # every run (>= 255: the 16-bit escape) and every literal (a rare
+    # symbol of the type-2 scheme: code + 8 bits) an escape
+    l = max(long_len // 4, 3000)
+    data = np.full((3, l), rchar, np.uint8)
+    for r in range(3):
+        at = np.cumsum(rng.integers(256, 700, l // 256))
+        at = at[at < l]
+        data[r, at] = rng.choice(np.setdiff1d(np.arange(40, 256), [rchar]), len(at))
+    run_case("run: every code an escape", "type2", data, np.array([l, l - 1, 300]))
     return cases
 
 
