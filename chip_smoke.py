@@ -13,10 +13,14 @@ Phases, each printing one line (or a few) before the final JSON lines:
    CUDA and nvcc versions, the card's copy bandwidth (1 GiB ``copy_``); the
    card must have compute capability (9, 0);
 2. build: compile ops/csrc/*.cu with nvcc for sm_90a, one compiler per
-   source, all at once, and the native C shims with gcc, timed;
+   source, all at once, and the native C shims with gcc, timed; each
+   kernel's registers, shared memory and spills (ptxas);
 3. encode kernels: K1 (encode_plain), K2 (encode_run) and K3 (pack_tags) on
    the card against their plain PyTorch twins, bit for bit, at the shapes of
-   the 16 MB uniform batch and on rows of up to 70,000 symbols; K9
+   the 16 MB uniform batch and on rows of up to 70,000 symbols; K1 also on
+   testing.encode_edge_rows (rows of 0, 1, 31, 32, 33 symbols and over
+   several tiles, all escapes, 0-bit codes only, a width no multiple of 16)
+   and timed at the widest bucket of the long-read batch that K1 takes; K9
    (lut_gather) and K8 (pack_words) on what the encode step's emission
    route gives them at the widest bucket of the long-read batch (61,440
    symbols, 122,881 slots on the RLE channel) and on edge rows (0 slots,
@@ -78,7 +82,8 @@ computes the same function, that call's device time with warm L2
 (``library_ms``); ``bound_ms`` is the bytes the function must move over
 the card's published memory rate; ``ops_per_call`` the device operations
 per call in a warm trace of 20 calls (1: the call is its one kernel, so
-``ms`` is its device time; below 1 where the trace dropped operations).  It prints the
+``ms`` is its device time; below 1 where the trace dropped operations; a
+call of more than one fails).  It prints the
 kernels as one JSON line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises, so the exit code is non-zero and no result is printed.
@@ -222,15 +227,48 @@ def phase_environment():
         f"(1 GiB copy_, read + write, {ms} ms)")
 
 
+def _kernel_name(mangled: str) -> str:
+    """The ``*_kernel`` name inside a mangled symbol: a run of digits that
+    gives the length of the name after it (an anonymous namespace adds a
+    prefix that may end in digits too)."""
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group()
+        for i in range(len(digits)):
+            n = int(digits[i:])
+            name = mangled[m.end():m.end() + n]
+            if (len(name) == n and name.endswith("_kernel")
+                    and re.fullmatch(r"[A-Za-z_]\w*", name)):
+                return name
+    return mangled
+
+
+def ptxas_summary(out: str):
+    """[(kernel, "Used N registers, ... smem; F bytes stack frame, S bytes
+    spill stores, L bytes spill loads")] from ``nvcc -Xptxas -v`` output,
+    one entry per compiled kernel (a template kernel once per instance), in
+    the order compiled."""
+    res, name, spills = [], None, ""
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = _kernel_name(m.group(1)), ""
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif name and "Used" in line:
+            used = line.split(":", 1)[1].strip()
+            res.append((name, f"{used}; {spills}"))
+            name = None
+    return res
+
+
 def phase_build():
     from dextractor_tpu_torch.ops import _build
     from dextractor_tpu_torch.utils import dispatch
 
     _, seconds, out = _build.build(force=True)
     dispatch.kernels()
-    for line in out.splitlines():
-        if "Used" in line or "Compiling entry" in line:
-            log(f"[ptxas] {line.strip()}")
+    for name, props in ptxas_summary(out):
+        log(f"[ptxas] {name}: {props}")
     log(f"[build] nvcc sm_90a, {len(_build.sources())} sources at once, {seconds:.2f} s")
     # the native shims build with gcc at first use: here, so that no
     # phase's host-clock stages count a compiler
@@ -311,8 +349,13 @@ def measure(name, kern, twin, nbytes, slow_twin=False, library=None, label=None)
     warm_ms, _ = device_ms(kern, match=match)
     ms, _ = device_ms(lambda: (flush.zero_(), kern()), match=match)
     # the device operations of one call (warm): where it is one, the
-    # kernel's mean time per launch (ms, warm_ms) is the call's device time
+    # kernel's mean time per launch (ms, warm_ms) is the call's device time;
+    # a call of more than one (a memset, a copy beside the kernel) fails
+    # (below one: the trace dropped operations)
     _, ops = device_ms(kern)
+    if ops > 1:
+        raise AssertionError(f"{label or name}: {ops} device operations per call, "
+                             "expected its one kernel")
     if slow_twin:
         plain_event_ms = cuda_ms(twin, reps=1, rounds=1, warmup=0)
         plain_ms, n_ops = device_ms(twin, reps=1, warm=False)
@@ -438,6 +481,19 @@ def narrowest_pack_words(long: bytes, dev):
                 f"{pw[0].shape[0]} x {pw[0].shape[1]} slots)")
 
 
+def widest_fused_plain(long: bytes, dev):
+    """K1's input at the widest bucket of ``long`` that the encode step
+    sends through K1/K2 (``emit.fused_ok``): (data, lengths, luts) of its
+    plain QV channels on ``dev``, and a label."""
+    import torch
+    from dextractor_tpu_torch.testing import plain_rows, widest_bucket_batch, widest_fused_bucket
+
+    i, width = widest_fused_bucket(long)
+    args = tuple(torch.from_numpy(a).to(dev) for a in plain_rows(widest_bucket_batch(long, i)))
+    return args, (f"encode_plain (widest K1 bucket of the long-read batch, width {width}, "
+                  f"{tuple(args[0].shape)})")
+
+
 def phase_encode_kernels(device, uniform: bytes, long: bytes, wide_len: int = 70_000):
     """K1-K3 against their twins on ``device``, at the uniform batch's
     shapes and on ``wide_rows(wide_len)``; K9 and K8 on the inputs that the
@@ -448,7 +504,7 @@ def phase_encode_kernels(device, uniform: bytes, long: bytes, wide_len: int = 70
     from dextractor_tpu_torch.ops import bitstream_torch as bt
     from dextractor_tpu_torch.ops import emit
     from dextractor_tpu_torch.parallel.pipeline import _pack_tags
-    from dextractor_tpu_torch.testing import step_batch
+    from dextractor_tpu_torch.testing import encode_edge_rows, step_batch
 
     (streams, lengths, sym, run, rchars, nlut), run_on = step_batch(uniform)
     dev = torch.device(device)
@@ -509,6 +565,25 @@ def phase_encode_kernels(device, uniform: bytes, long: bytes, wide_len: int = 70
     runs = "runs > 255 and > 65,535" if wide_len > 65_535 else "runs > 255"
     log(f"[kernel] wide rows {tuple(d.shape)} ({runs}, type-2 escapes): K1, K2, K3 "
         "bit-identical to their twins")
+    for label, data, lens, luts in encode_edge_rows(min(9000, wide_len)):
+        args = tuple(torch.from_numpy(a).to(dev) for a in (data, lens, luts))
+        res["encode_plain"]["max_abs_err"] = max(
+            res["encode_plain"]["max_abs_err"],
+            _check_words("encode_plain", emit.encode_plain(*args), bt.encode_plain_ref(*args)))
+        log(f"[kernel] encode_plain edge rows ({label}, {tuple(data.shape)}) bit-identical "
+            "to twin")
+    if on_card(dev):
+        # K1 at the widest bucket of the long-read batch that takes K1/K2
+        args, label = widest_fused_plain(long, dev)
+        out = emit.encode_plain(*args)
+        _check_words(label, out, bt.encode_plain_ref(*args))
+        c, n, width = args[0].shape
+        n_sym = int(args[1].long().clamp(max=width).sum())
+        wide = measure("encode_plain", lambda: emit.encode_plain(*args),
+                       lambda: bt.encode_plain_ref(*args),
+                       c * (n_sym + 1024 + 8 * n) + 4 * n + _words_out(out[1]), label=label)
+        res["encode_plain"].update({f"widest_{k}": wide[k] for k in (
+            "ms", "warm_ms", "plain_ms", "bound_ms", "event_ms", "bytes")})
 
     # K9 and K8 on what the emission route gives them at the widest bucket
     from dextractor_tpu_torch.ops import lut

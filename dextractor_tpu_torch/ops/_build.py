@@ -33,7 +33,7 @@ _LL = ctypes.c_longlong
 # every pointer and the stream are c_void_p: ctypes would otherwise pass a
 # 32-bit int and cut the address
 ARGTYPES = {
-    "dxt_encode_plain": [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _P],
+    "dxt_encode_plain": [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _P, ctypes.c_uint, _P],
     "dxt_encode_run": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _P],
     "dxt_pack_tags": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _P],
     "dxt_pack_words": [_P, _P, _P, _I, _LL, _P, ctypes.c_uint, _P],

@@ -15,21 +15,20 @@
 // interleaved tiles, no advance or shift networks.
 //
 // Bound on the H100.  A Huffman chain is serial: the position of symbol j+1 is
-// known only after symbol j is looked up.  So a chain per thread is bound by
-// the latency of one chain step (a table lookup in shared memory, a few
-// integer operations), times the longest chain, not by bytes: a 2,000-symbol
-// row is ~1 KB of words in and 2 KB out.  K4's design: one thread per chain,
-// chains of all C channels in one launch (blockIdx.y is the channel, each
-// with its own rectangle width); the L1 tables and, when it fits in 32 KB,
-// the L2 table sit in shared memory; each thread keeps its 64-bit window
-// (two words) in registers and loads the next word only when the position
-// crosses into it, so most steps touch no global memory.  Symbols leave as
-// 32-bit stores of four, and each chain writes its whole output row, zeros
-// past its end included.  K5 decodes a chain with a whole warp whose lanes
-// speculate on slices of its bits and synchronise (decode_run_kernel), so
-// its time is a few slices' steps per 4,096 bits of a chain, not the
-// chain's steps, and a batch fills the card with warps instead of threads;
-// it writes padding tokens past each chain's end.  K6 is bound by bytes (it writes every
+// known only after symbol j is looked up.  A chain walked by one thread is
+// bound by the latency of one chain step (a table lookup in shared memory, a
+// few integer operations) times the chain's symbols, not by bytes: a
+// 2,000-symbol row is ~1 KB of words in and 2 KB out.  So K4 and K5 decode a
+// chain with a whole warp whose lanes speculate on slices of its bits and
+// synchronise by shuffles (decode_plain_kernel, decode_run_kernel): a chain
+// costs a few passes of one slice's steps per window of 32 slices, not its
+// symbols' steps, and a batch fills the card with warps instead of threads.
+// K4 takes the C plain channels of one launch as blockIdx.y, each with its
+// own rectangle width, stages each window's words in shared memory, and
+// writes every column of its rows (the decoded symbols, then zeros), 16
+// bytes a store where aligned; K5 writes padding tokens past each chain's
+// end.  The L1 tables and, when it fits in 32 KB, the L2 table sit in
+// shared memory.  K6 is bound by bytes (it writes every
 // column of its rows once): one block per row fills rchar (and -1 for the
 // tags), then a block scan of the run lengths over 1,024-token chunks,
 // carried across chunks, places literal k at column cumsum(runs)[k] + k and
@@ -43,7 +42,6 @@
 namespace {
 
 constexpr int kMaxChannels = 4;
-constexpr int kChainThreads = 64;
 constexpr long long kSmemL2Max = 8192;  // L2 entries staged in shared memory (32 KB);
                                         // decode_chains.SMEM_L2_MAX mirrors it
 constexpr int kExpandThreads = 256;
@@ -102,7 +100,129 @@ __device__ __forceinline__ void stage_l2(int* s_l2, const int* f2, long long f2_
   for (long long i = threadIdx.x; i < f2_len; i += blockDim.x) s_l2[i] = f2[i];
 }
 
-__global__ void __launch_bounds__(kChainThreads)
+// K4: one warp per (channel, chain).  K5's schedule (below) with one phase:
+// the chain's bits are walked in windows of 32 lanes x kPlainLaneBits bits,
+// and lane i owns the bits [w0 + i * kPlainLaneBits, w0 + (i + 1) *
+// kPlainLaneBits) of the window that starts at the chain's position w0.
+//  1. Stage: the warp copies the window's words (kPlainWinWords of them, the
+//     last word of the row repeated past it) into shared memory, so every
+//     read of the passes below is a shared load.
+//  2. Speculate: lane 0 starts at the chain's true position, every other
+//     lane at its first bit, and each decodes until it passes its end.  A
+//     0-bit code that is no escape stalls a lane: its position no longer
+//     moves, so the serial chain repeats that symbol to its end.
+//  3. Synchronise: each lane takes its left neighbour's exit position as its
+//     start and decodes again, until no start changes up to the first
+//     stalled lane (the lanes past it lie past the chain's end).  A code
+//     that never resynchronises (every code 8 bits long, a lane started
+//     inside one) settles lane by lane in at most 32 rounds.
+//  4. Scan: a warp scan of the lanes' symbol counts (a stalled lane counts
+//     kStallSyms more) gives each lane the index of its first symbol.
+//  5. Write: each lane decodes again from its settled start and writes its
+//     symbols (a plain code is one symbol, an escape a code and an 8-bit
+//     literal) while its index is below len; the lane that reaches len (or
+//     stalls) gives the chain's bits and last.  Junk read past the row never
+//     lands, since no lane writes past len.  A lane stores its symbols
+//     straight to the row, four to a 32-bit store where it holds the word
+//     whole (faster on the H100 than staging a window's symbols in shared
+//     memory and storing them 16 bytes at a time, PERF.md).
+// The next window starts at the last lane's exit.  Then the warp fills the
+// stalled symbol up to len, and zeros from len to max_len, with 16-byte
+// stores where aligned.  The L1 tables, and the L2 table up to kSmemL2Max
+// entries, sit in shared memory, staged once a block; the C channels of a
+// launch are blockIdx.y, each with its own rectangle width.
+constexpr int kPlainWarps = 8;                          // chains per block
+constexpr int kPlainLaneBits = 128;                     // bits a lane owns in a window
+constexpr int kPlainWinWords = kPlainLaneBits + 2;      // words a window reads
+constexpr long long kStallSyms = 1LL << 40;             // a stalled lane's symbols
+constexpr unsigned kAll = 0xffffffffu;
+
+// One lane's reader of its warp's staged window words, with the two words
+// under its position kept in registers.
+struct PlainReader {
+  const uint32_t* sw;
+  const int* l1;
+  const int* l2;
+  long long l2_len;
+  int subw, lmax, signal;
+  int cur;
+  uint32_t hi, lo;
+
+  __device__ __forceinline__ uint64_t at(int q) {
+    const int i = q >> 5;
+    if (i != cur) {
+      hi = i == cur + 1 ? lo : sw[i];
+      lo = sw[i + 1];
+      cur = i;
+    }
+    return (static_cast<uint64_t>(hi) << 32) | lo;
+  }
+
+  // One code at window bit q: its symbol, q past it, and its width (8 after
+  // an escape; 0 for a 0-bit code, which leaves q where it was).
+  __device__ __forceinline__ int step(int& q, int& width) {
+    const uint64_t w = at(q);
+    const int p = q & 31;
+    const int e = lookup(l1, l2, l2_len, subw, lmax, bits_at(w, p, 16));
+    const int nb = (e >> 9) & 31;
+    const int sym = e & 511;
+    if (sym == signal) {
+      q += nb + 8;
+      width = 8;
+      return bits_at(w, p + nb, 8);
+    }
+    q += nb;
+    width = nb;
+    return sym;
+  }
+};
+
+// out[from, to) = v by the 32 lanes of a warp: 16-byte stores where the
+// address allows, single bytes at the two ends.
+__device__ __forceinline__ void warp_fill(uint8_t* out, long long from, long long to,
+                                          uint8_t v, int lane) {
+  if (from >= to) return;
+  const long long mis = (16 - static_cast<long long>(reinterpret_cast<uintptr_t>(out + from) & 15)) & 15;
+  const long long body = from + (mis < to - from ? mis : to - from);
+  const long long end = body + ((to - body) & ~15LL);
+  if (lane < body - from) out[from + lane] = v;
+  const uint32_t v4 = v * 0x01010101u;
+  const uint4 v16 = make_uint4(v4, v4, v4, v4);
+  for (long long i = body + 16LL * lane; i < end; i += 16 * 32) {
+    *reinterpret_cast<uint4*>(out + i) = v16;
+  }
+  if (lane < to - end) out[end + lane] = v;
+}
+
+// A lane's symbol stores straight to the row: four symbols of a word it
+// holds whole go as one 32-bit store (rows of a width that is a multiple of
+// 4), the others as single bytes.
+struct DirectSink {
+  uint8_t* out;
+  long long first;  // the lane's first symbol index
+  bool words;
+  uint32_t acc;
+
+  __device__ __forceinline__ void put(long long j, int sym) {
+    if (!words || (j & ~3LL) < first) {
+      out[j] = static_cast<uint8_t>(sym);
+      return;
+    }
+    acc |= static_cast<uint32_t>(sym & 0xFF) << (8 * (j & 3));
+    if ((j & 3) == 3) {
+      *reinterpret_cast<uint32_t*>(out + j - 3) = acc;
+      acc = 0u;
+    }
+  }
+  // end: the index after the lane's last symbol
+  __device__ __forceinline__ void flush(long long end) {
+    if (words && (end & 3) && (end & ~3LL) >= first) {
+      for (int b = 0; b < (end & 3); ++b) out[(end & ~3LL) + b] = static_cast<uint8_t>(acc >> (8 * b));
+    }
+  }
+};
+
+__global__ void __launch_bounds__(32 * kPlainWarps)
 decode_plain_kernel(PlainChannels ch, const int* __restrict__ rlens,
                     const int* __restrict__ pos0, const int* __restrict__ f1,
                     const int* __restrict__ f2, long long f2_len, int lmax, bool l2_smem,
@@ -110,63 +230,126 @@ decode_plain_kernel(PlainChannels ch, const int* __restrict__ rlens,
                     int* __restrict__ last_out, int n_rows, long long max_len) {
   extern __shared__ int s_l2[];
   __shared__ int s_l1[256];
+  __shared__ uint32_t s_win[kPlainWarps][kPlainWinWords];
   const int c = blockIdx.y;
   for (int i = threadIdx.x; i < 256; i += blockDim.x) s_l1[i] = f1[c * 256 + i];
   if (l2_smem) stage_l2(s_l2, f2, f2_len);
   __syncthreads();
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kPlainWarps + warp;
   if (row >= n_rows) return;
 
   const long long r = static_cast<long long>(c) * n_rows + row;
-  const int* l2 = l2_smem ? s_l2 : f2;
-  const int subw = ch.subw[c];
-  const int signal = ch.signal[c];
   const long long k = ch.k[c];
-  Window win{ch.rect[c] + row * k, k, -2, 0u, 0u};
+  const uint32_t* src = ch.rect[c] + row * k;
+  uint32_t* sw = s_win[warp];
+  PlainReader rd{sw, s_l1, l2_smem ? s_l2 : f2, f2_len, ch.subw[c], lmax, ch.signal[c], -2,
+                 0u, 0u};
   const long long rl = rlens[row];
-  const int len = static_cast<int>(rl < 0 ? 0 : (rl < max_len ? rl : max_len));
-  const bool aligned = (max_len & 3) == 0;
+  const long long len = rl < 0 ? 0 : (rl < max_len ? rl : max_len);
   uint8_t* out = syms + r * max_len;
-  long long pos = pos0 ? pos0[r] : 0;
-  int last = 0;
-  uint32_t acc = 0;
-  for (int j = 0; j < len; ++j) {
-    const uint64_t w = win.at(pos);
-    const int p = static_cast<int>(pos & 31);
-    const int e = lookup(s_l1, l2, f2_len, subw, lmax, bits_at(w, p, 16));
-    int sym = e & 511;
-    const int nb = (e >> 9) & 31;
-    if (sym == signal) {  // escape: an 8-bit literal follows the code
-      sym = bits_at(w, p + nb, 8);
-      pos += nb + 8;
-      last = 8;
-    } else {
-      pos += nb;
-      last = nb;
+  const bool words = (max_len & 3) == 0;
+  long long pos = pos0 ? pos0[r] : 0;  // the chain's position between windows
+  long long em = 0;                    // symbols before the window
+  long long end_pos = pos, fill_from = -1;
+  int end_last = 0, fill_sym = 0;
+  bool done = len <= 0;
+
+  while (!done) {
+    const long long base = pos >> 5;
+    __syncwarp();
+    for (int i = lane; i < kPlainWinWords; i += 32) {
+      const long long wi = base + i;
+      sw[i] = __ldg(src + (wi < 0 ? 0 : (wi < k ? wi : k - 1)));
     }
-    if (aligned) {
-      acc |= static_cast<uint32_t>(sym & 0xFF) << (8 * (j & 3));
-      if ((j & 3) == 3) {
-        *reinterpret_cast<uint32_t*>(out + j - 3) = acc;
-        acc = 0u;
+    __syncwarp();
+    rd.cur = -2;
+    const int q0 = static_cast<int>(pos & 31);
+    const int lane_end = q0 + (lane + 1) * kPlainLaneBits;
+    int start = q0 + lane * kPlainLaneBits;
+    int xq, n_sym;
+    bool stalled;
+    for (;;) {  // speculate, then synchronise until no start changes
+      xq = start;
+      n_sym = 0;
+      stalled = false;
+      while (xq < lane_end) {
+        int q = xq, width;
+        rd.step(q, width);
+        if (width == 0) {
+          stalled = true;
+          break;
+        }
+        xq = q;
+        ++n_sym;
       }
+      int nstart = __shfl_up_sync(kAll, xq, 1);
+      if (lane == 0) nstart = start;
+      const unsigned stalls = __ballot_sync(kAll, stalled);
+      const int first_stall = stalls ? __ffs(stalls) - 1 : 31;
+      const bool moved = nstart != start && lane <= first_stall;
+      start = nstart;
+      if (!__any_sync(kAll, moved)) break;
+    }
+    // exclusive scan of the lanes' symbols
+    const long long cnt = n_sym + (stalled ? kStallSyms : 0);
+    long long inc = cnt;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long t = __shfl_up_sync(kAll, inc, d);
+      if (lane >= d) inc += t;
+    }
+    long long ec = em + inc - cnt;
+    // the write pass
+    bool ends = false;
+    long long fpos = 0, sfrom = -1;
+    int flast = 0, ssym = 0;
+    {
+      DirectSink sink{out, ec, words, 0u};
+      int q = start;
+      while (ec < len && q < lane_end) {
+        int q2 = q, width;
+        const int sym = rd.step(q2, width);
+        if (width == 0) {  // the rest of the chain repeats sym
+          ends = true;
+          fpos = (base << 5) + q;
+          sfrom = ec;
+          ssym = sym;
+          break;
+        }
+        sink.put(ec, sym);
+        ++ec;
+        q = q2;
+        if (ec == len) {
+          ends = true;
+          fpos = (base << 5) + q;
+          flast = width;
+          break;
+        }
+      }
+      sink.flush(ec);
+    }
+    const unsigned enders = __ballot_sync(kAll, ends);
+    if (enders) {
+      const int src_lane = __ffs(enders) - 1;
+      end_pos = __shfl_sync(kAll, fpos, src_lane);
+      end_last = __shfl_sync(kAll, flast, src_lane);
+      fill_from = __shfl_sync(kAll, sfrom, src_lane);
+      fill_sym = __shfl_sync(kAll, ssym, src_lane);
+      done = true;
     } else {
-      out[j] = static_cast<uint8_t>(sym);
+      pos = (base << 5) + __shfl_sync(kAll, xq, 31);
+      em += __shfl_sync(kAll, inc, 31);
     }
   }
-  // the rest of the row is zero
-  if (aligned) {
-    long long j = len & ~3;
-    if (len & 3) {
-      *reinterpret_cast<uint32_t*>(out + j) = acc;
-      j += 4;
-    }
-    for (; j < max_len; j += 4) *reinterpret_cast<uint32_t*>(out + j) = 0u;
-  } else {
-    for (long long j = len; j < max_len; ++j) out[j] = 0;
+  __syncwarp();
+  if (fill_from >= 0) warp_fill(out, fill_from, len, static_cast<uint8_t>(fill_sym), lane);
+  warp_fill(out, len, max_len, 0, lane);
+  if (lane == 0) {
+    bits_out[r] = static_cast<int>(end_pos);
+    last_out[r] = end_last;
   }
-  bits_out[r] = static_cast<int>(pos);
-  last_out[r] = last;
 }
 
 // K5: one warp per run chain.  The chain's bits are walked in windows of
@@ -251,7 +434,6 @@ decode_run_kernel(const uint32_t* __restrict__ rect, long long k,
   const int row = blockIdx.x * kRunWarps + (threadIdx.x >> 5);
   if (row >= n_rows) return;
   const int lane = threadIdx.x & 31;
-  constexpr unsigned kAll = 0xffffffffu;
 
   RunChain ch{Window{rect + row * k, k, -2, 0u, 0u}, s_run, s_sym, l2_smem ? s_l2 : f2,
               f2_len, subw, lmax, nsignal};
@@ -464,9 +646,9 @@ extern "C" int dxt_decode_plain(int channels, const void* rects, const void* k_w
   }
   const bool l2_smem = any_l2 && f2_len <= kSmemL2Max;
   const size_t smem = l2_smem ? static_cast<size_t>(f2_len) * sizeof(int) : 0;
-  const dim3 grid(static_cast<unsigned>((n_rows + kChainThreads - 1) / kChainThreads),
+  const dim3 grid(static_cast<unsigned>((n_rows + kPlainWarps - 1) / kPlainWarps),
                   static_cast<unsigned>(channels));
-  decode_plain_kernel<<<grid, kChainThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  decode_plain_kernel<<<grid, 32 * kPlainWarps, smem, static_cast<cudaStream_t>(stream)>>>(
       ch, static_cast<const int*>(rlens), static_cast<const int*>(pos0),
       static_cast<const int*>(f1), static_cast<const int*>(f2), f2_len, lmax, l2_smem,
       static_cast<uint8_t*>(syms), static_cast<int*>(bits), static_cast<int*>(last), n_rows,

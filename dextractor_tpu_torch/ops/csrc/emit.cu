@@ -31,21 +31,25 @@
 // Bound on the H100: by bytes, device memory.  A symbol is one byte in; K1
 // writes at most 24 bits for it (usually 4-6), K2 at most 56 per literal,
 // K3 2 bits.  The work per symbol is one 256-entry LUT lookup, a few shifts
-// and a share of one block-wide scan per 1,024 symbols.  Measured on an
-// H100 80GB HBM3 (700 W) at 2,000-symbol rows with L2 flushed, they run
-// 5-16x longer than their bytes take at the card's copy bandwidth, so at
-// such rows the latency of the per-chunk barriers bounds them, not memory
-// (PERF.md, Findings).  Design: one thread block owns
-// one (channel, row) and walks it in chunks of kChunk symbols, four per
-// thread.  A block scan of the emission widths (carried across chunks) gives
-// every emission its bit offset; K2 first runs a max-scan of literal
-// positions to recover each literal's preceding run (bitstream_jax.py:126).
-// Emissions are ORed into a shared-memory window with shared atomics, and
-// each finished 32-bit word (byte for K3) goes to device memory exactly once,
-// coalesced.  Nothing is zero-filled: K1/K2 leave the words past a row's
-// ceil(t/32) unwritten (callers read rows up to that count), K3 writes its
-// whole row including the zero tail.  The TPU kernels' 8,192-column VMEM cap
-// does not apply: a row of any width streams through the same window.
+// and a share of a scan.  At 2,000-symbol rows instruction issue and the
+// latency of the scans and barriers, not memory, bound them (PERF.md,
+// Findings).  K1 (see encode_plain_kernel) gives each tile of a row (the
+// row's width, or narrower where a launch has few rows) to one warp: a
+// shuffle scan of the lanes' widths a step at a time, each lane's words
+// built in a register and ORed once into a per-warp shared window, no block
+// barrier; the tiles of a wider row chain by K8's decoupled look-back.  K2
+// and K3:
+// one thread block owns one (channel, row) and walks it in chunks of kChunk
+// symbols, four per thread.  A block scan of the emission widths (carried
+// across chunks) gives every emission its bit offset; K2 first runs a
+// max-scan of literal positions to recover each literal's preceding run
+// (bitstream_jax.py:126).  Emissions are ORed into a shared-memory window
+// with shared atomics, and each finished 32-bit word (byte for K3) goes to
+// device memory exactly once, coalesced.  Nothing is zero-filled: K1/K2
+// leave the words past a row's ceil(t/32) unwritten (callers read rows up to
+// that count), K3 writes its whole row including the zero tail.  The TPU
+// kernels' 8,192-column VMEM cap does not apply: a row of any width streams
+// through the same window.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -126,58 +130,6 @@ __device__ __forceinline__ void flush_words(uint32_t* s, uint32_t* dst,
 __device__ __forceinline__ int clamp_len(int len, long long width) {
   if (len < 0) return 0;
   return len > width ? static_cast<int>(width) : len;
-}
-
-__global__ void __launch_bounds__(kThreads)
-encode_plain_kernel(const uint8_t* __restrict__ data, const int* __restrict__ lengths,
-                    const int* __restrict__ luts, uint32_t* __restrict__ words,
-                    int* __restrict__ t_out, int* __restrict__ lg_out, int n_rows,
-                    long long width, long long mp) {
-  constexpr int kStage = kChunk + 2;  // <= 32 bits per symbol, plus the carry word
-  __shared__ int s_lut[256];
-  __shared__ uint32_t s_stage[kStage];
-  __shared__ int s_warp[kWarps];
-
-  const int row = blockIdx.x;
-  const int ch = blockIdx.y;
-  const long long r = static_cast<long long>(ch) * n_rows + row;
-  const uint8_t* src = data + r * width;
-  uint32_t* dst = words + r * mp;
-  const int len = clamp_len(lengths[row], width);
-  for (int i = threadIdx.x; i < 256; i += kThreads) s_lut[i] = luts[ch * 256 + i];
-  for (int i = threadIdx.x; i < kStage; i += kThreads) s_stage[i] = 0u;
-  __syncthreads();
-
-  long long carry = 0;  // bits emitted by earlier chunks
-  for (int c0 = 0; c0 < len; c0 += kChunk) {
-    Emission e[kItems];
-    int tot = 0;
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int col = c0 + threadIdx.x * kItems + k;
-      e[k] = {0u, 0, 0};
-      if (col < len) {
-        e[k] = sym_emission(s_lut, src[col]);
-        if (col == len - 1) lg_out[r] = e[k].gran;
-      }
-      tot += e[k].n;
-    }
-    int total;
-    int bit = static_cast<int>(carry & 31) + block_scan(tot, 0, SumOp(), s_warp, &total);
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      if (e[k].n) put_bits(s_stage, bit, e[k].v, e[k].n);
-      bit += e[k].n;
-    }
-    const long long end = carry + total;
-    flush_words(s_stage, dst, carry, end);
-    carry = end;
-  }
-  if (threadIdx.x == 0) {
-    if (carry & 31) dst[carry >> 5] = s_stage[0];
-    t_out[r] = static_cast<int>(carry);
-    if (len == 0) lg_out[r] = 0;
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -385,6 +337,62 @@ __device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
   asm volatile("st.release.gpu.u32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
 }
 
+// Publish a tile's aggregate (kAgg) or inclusive prefix (kInc): the payload,
+// a fence, then the flag with release order.  One lane calls it.
+__device__ __forceinline__ void publish(TileState* st, unsigned status, Carry c,
+                                        unsigned epoch) {
+  if (status == kAgg) {
+    st->agg_n = c.n;
+    st->agg_last = c.last;
+  } else {
+    st->inc_n = c.n;
+    st->inc_last = c.last;
+  }
+  __threadfence();
+  store_release(&st->flag, epoch << 2 | status);
+}
+
+// The exclusive prefix of tile k of a row whose tile states start at `row`,
+// by the 32 lanes of a warp, all of which return it.  A warp's width of
+// tiles at a time: lane j reads tile k - 1 - (base + j) of the row; wait
+// until all it needs have a flag of this launch, then combine up to the
+// nearest inclusive prefix.
+__device__ __forceinline__ Carry look_back(const TileState* row, int k, unsigned epoch,
+                                           int lane) {
+  Carry excl{0u, 0u};
+  for (int base = 0; base < k; base += 32) {
+    const int j = k - 1 - base - lane;  // tile index in the row, < 0: none
+    const TileState* p = row + (j < 0 ? 0 : j);
+    unsigned f = 0u;
+    for (;;) {
+      f = j < 0 ? (epoch << 2 | kInc) : load_acquire(&p->flag);
+      const bool ready = (f >> 2) == epoch && (f & 3u);
+      if (__all_sync(0xffffffffu, ready)) break;
+    }
+    const bool inc = j >= 0 && (f & 3u) == kInc;
+    Carry c{0u, 0u};
+    if (j >= 0) {
+      c = inc ? Carry{__ldcg(&p->inc_n), __ldcg(&p->inc_last)}
+              : Carry{__ldcg(&p->agg_n), __ldcg(&p->agg_last)};
+    }
+    const unsigned incs = __ballot_sync(0xffffffffu, inc);
+    const int stop = incs ? __ffs(incs) - 1 : 31;  // the nearest inclusive prefix
+    if (lane > stop) c = Carry{0u, 0u};
+    // lane 0 gathers lanes 0..stop; a higher lane is earlier in the stream
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const Carry o{__shfl_down_sync(0xffffffffu, c.n, d),
+                    __shfl_down_sync(0xffffffffu, c.last, d)};
+      if (lane + d < 32) c = combine(o, c);
+    }
+    c.n = __shfl_sync(0xffffffffu, c.n, 0);
+    c.last = __shfl_sync(0xffffffffu, c.last, 0);
+    excl = combine(c, excl);
+    if (incs) break;
+  }
+  return excl;
+}
+
 __global__ void __launch_bounds__(kTileThreads)
 pack_words_kernel(const uint32_t* __restrict__ v, const int* __restrict__ n,
                   uint32_t* __restrict__ words, long long m, long long mw,
@@ -437,52 +445,11 @@ pack_words_kernel(const uint32_t* __restrict__ v, const int* __restrict__ n,
     Carry excl{0u, 0u};
     const int lane = threadIdx.x;
     if (k > 0) {
-      if (lane == 0) {
-        st->agg_n = a.n;
-        st->agg_last = a.last;
-        __threadfence();
-        store_release(&st->flag, epoch << 2 | kAgg);
-      }
-      // look back a warp's width of tiles at a time: lane j reads tile
-      // k - 1 - (base + j) of the row; wait until all it needs have a flag
-      // of this launch, then combine up to the nearest inclusive prefix
-      for (int base = 0; base < k; base += 32) {
-        const int j = k - 1 - base - lane;  // tile index in the row, < 0: none
-        const TileState* p = states + (ticket - k) + (j < 0 ? 0 : j);
-        unsigned f = 0u;
-        for (;;) {
-          f = j < 0 ? (epoch << 2 | kInc) : load_acquire(&p->flag);
-          const bool ready = (f >> 2) == epoch && (f & 3u);
-          if (__all_sync(0xffffffffu, ready)) break;
-        }
-        const bool inc = j >= 0 && (f & 3u) == kInc;
-        Carry c{0u, 0u};
-        if (j >= 0) {
-          c = inc ? Carry{__ldcg(&p->inc_n), __ldcg(&p->inc_last)}
-                  : Carry{__ldcg(&p->agg_n), __ldcg(&p->agg_last)};
-        }
-        const unsigned incs = __ballot_sync(0xffffffffu, inc);
-        const int stop = incs ? __ffs(incs) - 1 : 31;  // the nearest inclusive prefix
-        if (lane > stop) c = Carry{0u, 0u};
-        // lane 0 gathers lanes 0..stop; a higher lane is earlier in the stream
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const Carry o{__shfl_down_sync(0xffffffffu, c.n, d),
-                        __shfl_down_sync(0xffffffffu, c.last, d)};
-          if (lane + d < 32) c = combine(o, c);
-        }
-        c.n = __shfl_sync(0xffffffffu, c.n, 0);
-        c.last = __shfl_sync(0xffffffffu, c.last, 0);
-        excl = combine(c, excl);
-        if (incs) break;
-      }
+      if (lane == 0) publish(st, kAgg, a, epoch);
+      excl = look_back(states + (ticket - k), k, epoch, lane);
     }
     if (lane == 0) {
-      const Carry inc = combine(excl, a);
-      st->inc_n = inc.n;
-      st->inc_last = inc.last;
-      __threadfence();
-      store_release(&st->flag, epoch << 2 | kInc);
+      publish(st, kInc, combine(excl, a), epoch);
       s_excl = excl;
     }
   }
@@ -515,6 +482,206 @@ pack_words_kernel(const uint32_t* __restrict__ v, const int* __restrict__ n,
       counters[1] = 0ULL;
       __threadfence();
     }
+  }
+}
+
+// K1: warps over tiles of a row.  Each (channel, row) is cut into tiles (the
+// row's width up to 4,096 symbols, narrower where a launch has too few rows
+// to fill the card: see dxt_encode_plain), one warp a tile and
+// kPlainTileWarps tiles a block.
+// Each warp first unpacks its channel's LUT into a shared table of
+// value << 6 | escape << 5 | width per symbol.  It walks its tile in steps
+// of 32 x 8 symbols: each lane loads its 8 consecutive symbols (one
+// vector load where the row allows, single bytes elsewhere) and looks each
+// up once; a shuffle scan of the lanes' widths
+// gives each lane its bit offset; each lane shifts its emissions into a
+// 64-bit register, without a branch a symbol, and ORs each word it
+// completes into a per-warp shared window once, under __syncwarp (no
+// __syncthreads past the block's ticket); the window's finished words are
+// stored coalesced and its partial last word carried to the next step;
+// each step's symbols are loaded a step ahead.  A row of one tile (every
+// row of the uniform batch) needs nothing else.  The tiles of a wider row
+// chain by K8's decoupled look-back: a tile first folds its
+// (bit count, last <= 32 bits), which it publishes unless it holds the
+// row's last symbol; a later tile looks back for its exclusive prefix and
+// starts its window with the carried bits.  A tile stores the words whose
+// last bit it holds; the row's last tile also stores the partial last word
+// and t, and the lane with the symbol len - 1 lg.  Tiles past the row's
+// length do nothing.  Tiles come from a ticket counter only when a row has
+// more than one; the tile states are K8's (the same scratch and epochs).
+// A block holds 4 tiles, and at least 10 blocks fit an SM (48 registers a
+// thread), so the uniform batch's ~5,000 tiles run in one wave.
+constexpr int kPlainTileWarps = 4;                          // tiles per block
+constexpr int kPlainMinBlocks = 10;                         // blocks an SM holds, at least
+constexpr int kPlainTileMax = 4096;                         // symbols per tile, at most
+constexpr int kPlainTileMin = 512;                          // and at least
+constexpr long long kPlainMinTiles = 2048;                  // tiles a launch wants
+constexpr int kPlainLaneSyms = 8;                           // symbols per lane and step
+constexpr int kPlainStep = 32 * kPlainLaneSyms;             // symbols per warp step
+constexpr int kPlainWinWords = kPlainStep * 24 / 32 + 2;    // <= 24 bits a symbol
+
+// A lane's 8 symbols from p[i0] on, four to a word, those from n on zero:
+// one 8-byte load where aligned and whole, single bytes else.
+__device__ __forceinline__ void lane_syms(const uint8_t* p, int i0, int n,
+                                          uint32_t (&w)[2]) {
+  if (i0 + kPlainLaneSyms <= n && (reinterpret_cast<uintptr_t>(p + i0) & 7) == 0) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p + i0);
+    w[0] = x.x;
+    w[1] = x.y;
+    return;
+  }
+  w[0] = w[1] = 0u;
+#pragma unroll
+  for (int i = 0; i < kPlainLaneSyms; ++i) {
+    if (i0 + i < n) w[i >> 2] |= static_cast<uint32_t>(p[i0 + i]) << (8 * (i & 3));
+  }
+}
+
+__global__ void __launch_bounds__(32 * kPlainTileWarps, kPlainMinBlocks)
+encode_plain_kernel(const uint8_t* __restrict__ data, const int* __restrict__ lengths,
+                    const int* __restrict__ luts, uint32_t* __restrict__ words,
+                    int* __restrict__ t_out, int* __restrict__ lg_out, int n_rows,
+                    long long width, long long mp, int tile_syms, int tiles_per_row,
+                    long long n_tiles, unsigned epoch, TileState* __restrict__ states,
+                    unsigned long long* __restrict__ counters) {
+  __shared__ uint32_t s_em[kPlainTileWarps][256];
+  __shared__ uint32_t s_win[kPlainTileWarps][kPlainWinWords];
+  __shared__ long long s_ticket;
+  constexpr unsigned kFull = 0xffffffffu;
+
+  if (threadIdx.x == 0) {
+    long long t = blockIdx.x;
+    if (tiles_per_row > 1) {  // a tile may wait on earlier ones: take them in order
+      t = static_cast<long long>(atomicAdd(&counters[0], 1ULL));
+      __threadfence();
+      if (atomicAdd(&counters[1], 1ULL) == gridDim.x - 1ULL) {  // every ticket taken
+        counters[0] = 0ULL;
+        counters[1] = 0ULL;
+      }
+    }
+    s_ticket = t;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long tile = s_ticket * kPlainTileWarps + warp;
+  if (tile >= n_tiles) return;
+  const long long r = tile / tiles_per_row;  // channel * n_rows + row
+  const int k = static_cast<int>(tile - r * tiles_per_row);
+  const int ch = static_cast<int>(r / n_rows);
+  const int len = clamp_len(lengths[r - static_cast<long long>(ch) * n_rows], width);
+  const int lo = k * tile_syms;
+  if (k > 0 && lo >= len) return;
+  const int hi = lo + tile_syms < len ? lo + tile_syms : len;
+  const bool last_tile = hi == len;
+  uint32_t* em = s_em[warp];
+  for (int i = lane; i < 256; i += 32) {  // value << 6 | escape << 5 | width
+    const Emission e = sym_emission(luts + ch * 256, i);
+    em[i] = e.v << 6 | (luts[ch * 256 + i] & 1) << 5 | static_cast<uint32_t>(e.n);
+  }
+  const uint8_t* row = data + r * width;
+  __syncwarp();
+
+  Carry excl{0u, 0u};
+  if (!last_tile || k > 0) {
+    TileState* st = states + tile;
+    Carry a{0u, 0u};
+    if (!last_tile) {  // the tile's (bit count, last <= 32 bits), lanes in stream order
+      for (int s0 = lo; s0 < hi; s0 += kPlainStep) {
+        const int i0 = s0 + kPlainLaneSyms * lane;
+        uint32_t w[2];
+        lane_syms(row, i0, hi, w);
+        Carry sc{0u, 0u};
+#pragma unroll
+        for (int i = 0; i < kPlainLaneSyms; ++i) {
+          const uint32_t e = em[(w[i >> 2] >> (8 * (i & 3))) & 0xFF];
+          if (i0 + i < hi) sc = combine(sc, Carry{e & 31u, e >> 6});
+        }
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const Carry o{__shfl_down_sync(kFull, sc.n, d), __shfl_down_sync(kFull, sc.last, d)};
+          if (lane + d < 32) sc = combine(sc, o);
+        }
+        a = combine(a, Carry{__shfl_sync(kFull, sc.n, 0), __shfl_sync(kFull, sc.last, 0)});
+      }
+      if (lane == 0) publish(st, k > 0 ? kAgg : kInc, a, epoch);
+    }
+    if (k > 0) {
+      excl = look_back(states + (tile - k), k, epoch, lane);
+      if (!last_tile && lane == 0) publish(st, kInc, combine(excl, a), epoch);
+    }
+  }
+
+  // the tile's bits, a warp step at a time: the window holds the row's
+  // words from word bit >> 5 on, word 0 with the bits carried before bit
+  uint32_t* win = s_win[warp];
+  uint32_t* dst = words + r * mp;
+  unsigned bit = excl.n;
+  uint32_t carry = bit & 31 ? excl.last << (32 - (bit & 31)) : 0u;
+  uint32_t next[2];  // the next step's symbols, loaded a step ahead
+  lane_syms(row, lo + kPlainLaneSyms * lane, hi, next);
+  for (int s0 = lo; s0 < hi; s0 += kPlainStep) {
+    const int i0 = s0 + kPlainLaneSyms * lane;
+    const int nv = static_cast<int>(hi - i0 < 0 ? 0 : (hi - i0 < kPlainLaneSyms ? hi - i0 : kPlainLaneSyms));
+    uint32_t w[2];
+    w[0] = next[0];
+    w[1] = next[1];
+    if (s0 + kPlainStep < hi) lane_syms(row, i0 + kPlainStep, hi, next);
+    uint32_t e[kPlainLaneSyms];
+    int tot = 0;
+#pragma unroll
+    for (int i = 0; i < kPlainLaneSyms; ++i) {
+      e[i] = i < nv ? em[(w[i >> 2] >> (8 * (i & 3))) & 0xFF] : 0u;
+      tot += e[i] & 31;
+    }
+    const int j = len - 1 - i0;  // the lane's index of the row's last symbol
+    if (j >= 0 && j < kPlainLaneSyms) {
+      uint32_t el = e[0];
+#pragma unroll
+      for (int i = 1; i < kPlainLaneSyms; ++i) el = j == i ? e[i] : el;
+      lg_out[r] = el & 32 ? 8 : static_cast<int>(el & 31);
+    }
+    int inc = tot;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(kFull, inc, d);
+      if (lane >= d) inc += t;
+    }
+    const int step_bits = __shfl_sync(kFull, inc, 31);
+    const int o = static_cast<int>(bit & 31);
+    const int n_win = (o + step_bits + 31) >> 5;
+    for (int i = lane; i < n_win; i += 32) win[i] = i == 0 ? carry : 0u;
+    __syncwarp();
+    {
+      const int b = o + inc - tot;
+      // the lane's bits in a 64-bit accumulator, the first b & 31 of them
+      // zeros for the bits of the lanes before; ab bits not yet ORed out
+      int wi = b >> 5, ab = b & 31;
+      unsigned long long acc = 0ull;
+#pragma unroll
+      for (int i = 0; i < kPlainLaneSyms; ++i) {
+        acc = (acc << (e[i] & 31)) | (e[i] >> 6);
+        ab += static_cast<int>(e[i] & 31);
+        if (ab >= 32) {
+          ab -= 32;
+          atomicOr(&win[wi], static_cast<uint32_t>(acc >> ab));
+          ++wi;
+        }
+      }
+      if (ab) atomicOr(&win[wi], static_cast<uint32_t>(acc << (32 - ab)));
+    }
+    __syncwarp();
+    const int full = (o + step_bits) >> 5;
+    uint32_t* d = dst + (bit >> 5);
+    for (int i = lane; i < full; i += 32) d[i] = win[i];
+    carry = full < n_win ? win[full] : 0u;
+    __syncwarp();
+    bit += step_bits;
+  }
+  if (last_tile && lane == 0) {
+    if (bit & 31) dst[bit >> 5] = carry;
+    t_out[r] = static_cast<int>(bit);
+    if (len == 0) lg_out[r] = 0;
   }
 }
 
@@ -577,15 +744,40 @@ int launch_lut_gather(const T* data, const int* lut, int* out, long long count,
 // Plain C entry points, loaded with ctypes (ops/_build.py).  Each launches on
 // the given stream, never synchronises, and returns cudaGetLastError().
 
+// scratch and epoch: as dxt_pack_words' (K8 and K1 share them), with
+// channels * n_rows * max(1, ceil(width / 512)) tile states.  The tile is
+// the row's width in whole warp steps, at most 4,096 symbols, halved (to
+// whole steps, 512 symbols at least) while the launch has fewer than
+// kPlainMinTiles tiles: the uniform batch's rows are one tile each, with no
+// ticket and no look-back, and a bucket of few wide rows is cut finer.
 extern "C" int dxt_encode_plain(const void* data, const void* lengths, const void* luts,
                                 void* words, void* t, void* lg, int channels, int n_rows,
-                                long long width, long long mp, void* stream) {
+                                long long width, long long mp, void* scratch, unsigned epoch,
+                                void* stream) {
   if (channels <= 0 || n_rows <= 0) return 0;
-  const dim3 grid(static_cast<unsigned>(n_rows), static_cast<unsigned>(channels));
-  encode_plain_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long rows = static_cast<long long>(channels) * n_rows;
+  auto steps = [](long long n) { return (n + kPlainStep - 1) / kPlainStep * kPlainStep; };
+  long long tile = steps(width > 0 ? width : 1);
+  if (tile > kPlainTileMax) tile = kPlainTileMax;
+  auto per_row = [&](long long ts) { return width > 0 ? (width + ts - 1) / ts : 1LL; };
+  while (tile > kPlainTileMin && rows * per_row(tile) < kPlainMinTiles) {
+    const long long half = steps(tile / 2);
+    tile = half < kPlainTileMin ? kPlainTileMin : half;
+  }
+  const long long tpr = per_row(tile);
+  const long long tiles = rows * tpr;
+  const long long blocks = (tiles + kPlainTileWarps - 1) / kPlainTileWarps;
+  if (blocks > 0x7fffffffLL || epoch == 0 || epoch >= (1u << 30)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto* counters = static_cast<unsigned long long*>(scratch);
+  encode_plain_kernel<<<static_cast<unsigned>(blocks), 32 * kPlainTileWarps, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(data), static_cast<const int*>(lengths),
       static_cast<const int*>(luts), static_cast<uint32_t*>(words), static_cast<int*>(t),
-      static_cast<int*>(lg), n_rows, width, mp);
+      static_cast<int*>(lg), n_rows, width, mp, static_cast<int>(tile), static_cast<int>(tpr),
+      tiles, epoch,
+      reinterpret_cast<TileState*>(counters + 2), counters);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,6 +20,9 @@ from . import bitstream_torch as bt
 
 _MAX_WIDTH = 1 << 30    # the kernels index columns with 32-bit ints
 _MAX_CHANNELS = 65535   # channels are the grid's y dimension
+PLAIN_TILE_MIN = 512    # symbols per K1 tile, at least (kPlainTileMin in emit.cu)
+_EPOCHS = 1 << 30       # K1's and K8's epochs are 30 bits
+_TILE_SCRATCH = {}      # (device, stream) -> [tile states, last epoch]
 
 
 def fused_ok(width: int) -> bool:
@@ -70,6 +73,22 @@ def _launch(name, fn, *args):
     dispatch.LAUNCHES[name] += 1
 
 
+def tile_scratch(dev, n_tiles: int):
+    """The tile-state scratch of K1 and K8 on the current stream of ``dev``
+    (two u64 counters and a 32-byte state per tile), zeroed once when
+    allocated, and the next launch's epoch.  The tile states carry the
+    epoch of the launch that wrote them, so no launch has to clear them; a
+    new scratch is allocated when the epochs run out."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    need = 16 + 32 * n_tiles
+    ent = _TILE_SCRATCH.get(key)
+    if ent is None or ent[0].numel() < need or ent[1] + 1 >= _EPOCHS:
+        size = max(need, 2 * ent[0].numel() if ent else 0)
+        ent = _TILE_SCRATCH[key] = [torch.zeros(size, dtype=torch.uint8, device=dev), 0]
+    ent[1] += 1
+    return ent[0], ent[1]
+
+
 def _check_rows(data, lengths):
     if not isinstance(data, torch.Tensor) or data.dim() != 3:
         raise ValueError("data: expected a (C, N, L) tensor")
@@ -97,8 +116,12 @@ def encode_plain(data, lengths, sym_luts):
     t = torch.empty((c, n), dtype=torch.int32, device=data.device)
     lg = torch.empty((c, n), dtype=torch.int32, device=data.device)
     if c and n:
+        n_tiles = c * n * max(1, -(-l // PLAIN_TILE_MIN))
+        if -(-n_tiles // 4) >= 1 << 31:
+            raise ValueError(f"{n_tiles} tiles: the kernel takes fewer than 2^33")
+        scratch, epoch = tile_scratch(data.device, n_tiles)
         _launch("encode_plain", dispatch.kernels().dxt_encode_plain,
-                data, lengths, sym_luts, words, t, lg, c, n, l, mp)
+                data, lengths, sym_luts, words, t, lg, c, n, l, mp, scratch, epoch)
     return words, t, lg
 
 

@@ -18,29 +18,11 @@ import torch
 
 from ..utils import dispatch
 from . import bitstream_torch as bt
-from .emit import _check, _launch, _route
+from .emit import _check, _launch, _route, tile_scratch
 
 _MAX_ROWS = (1 << 31) - 1     # rows are the grid's x dimension
 PACK_TILE = 4096              # slots per K8 tile (kTile in emit.cu)
 _MAX_SLOTS = 1 << 27          # K8 counts a row's bits in 32 bits
-_EPOCHS = 1 << 30             # K8's epochs are 30 bits
-_PACK_SCRATCH = {}            # (device, stream) -> [tile states, last epoch]
-
-
-def _pack_scratch(dev, n_tiles: int):
-    """K8's scratch on the current stream of ``dev`` (two u64 counters and
-    a 32-byte state per tile), zeroed once when allocated, and the next
-    launch's epoch.  The tile states carry the epoch of the launch that
-    wrote them, so no launch has to clear them; a new scratch is allocated
-    when the epochs run out."""
-    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    need = 16 + 32 * n_tiles
-    ent = _PACK_SCRATCH.get(key)
-    if ent is None or ent[0].numel() < need or ent[1] + 1 >= _EPOCHS:
-        size = max(need, 2 * ent[0].numel() if ent else 0)
-        ent = _PACK_SCRATCH[key] = [torch.zeros(size, dtype=torch.uint8, device=dev), 0]
-    ent[1] += 1
-    return ent[0], ent[1]
 
 
 def lut_gather(data, lut):
@@ -95,7 +77,7 @@ def pack_words(v, n):
         n_tiles = rows * max(1, -(-m // PACK_TILE))
         if n_tiles >= 1 << 31:
             raise ValueError(f"{n_tiles} tiles: the kernel takes fewer than 2^31")
-        scratch, epoch = _pack_scratch(v.device, n_tiles)
+        scratch, epoch = tile_scratch(v.device, n_tiles)
         _launch("pack_words", dispatch.kernels().dxt_pack_words, v, n, words, rows, m,
                 scratch, epoch)
     return words

@@ -11,7 +11,9 @@ conftest imports it) and give the same bytes for the same generator state;
 ``__graft_entry__._example_batch`` do, ``widest_bucket_batch`` those of
 the widest bucket of the device encode, ``decode_batch`` those of
 ``ops.decode2.decode_entry_batch2`` for a .dexqv image the way
-``bench.py::_qv_dec_setup`` does.  ``decode_edge_cases`` builds edge rows of
+``bench.py::_qv_dec_setup`` does; ``plain_rows`` takes K1's inputs from an
+encode batch, ``widest_fused_bucket`` finds the widest bucket K1 takes.
+``decode_edge_cases`` builds edge rows of
 the decode kernels with the port's own encode twins, ``tag_edge_cases``
 edge inputs of K10.
 
@@ -203,6 +205,30 @@ def widest_bucket_batch(quiva: bytes, index: int = -1):
     return (rect, lengths, sym, run, rchars, nlut.copy()), run_on
 
 
+def widest_fused_bucket(quiva: bytes):
+    """(index, width) of the widest bucket of the device encode of a .quiva
+    image that the encode step sends through K1/K2 (``emit.fused_ok``)."""
+    from .codecs.qv_codec import encode_buckets
+    from .formats.quiva import parse_quiva
+    from .ops.emit import fused_ok
+
+    widths = [w for w, _ in encode_buckets(parse_quiva(quiva).lengths)]
+    i = max(i for i, w in enumerate(widths) if fused_ok(w))
+    return i, widths[i]
+
+
+def plain_rows(batch):
+    """K1's arguments for the plain QV channels of an encode-step batch
+    ((arguments, run_on) of ``step_batch`` or ``widest_bucket_batch``):
+    (data (C, N, L) u8, lengths (N,) i32, LUTs (C, 256) i32), NumPy."""
+    (streams, lengths, sym, _, _, _), run_on = batch
+    run_cs = [c for c, on in ((0, run_on[0]), (3, run_on[1])) if on]
+    plain_cs = [c for c in range(4) if c not in run_cs]
+    plane = (0, 2, 3, 4)
+    return (np.ascontiguousarray(streams[[plane[c] for c in plain_cs]]), lengths,
+            np.ascontiguousarray(sym[plain_cs]))
+
+
 def decode_batch(dexqv: bytes):
     """(positional arguments, keyword arguments) of ``decode_entry_batch2``
     for every entry of a .dexqv image as one rectangle: rows padded to
@@ -292,7 +318,10 @@ def decode_edge_cases(device, long_len: int = 70_000, row_len: int = 2500):
     plain rows, the type-2 and the 8-bit run rows are up to ``row_len``
     symbols wide.  Together the
     cases hold L2 tables of more and of fewer entries than
-    ``ops.decode_chains.SMEM_L2_MAX``."""
+    ``ops.decode_chains.SMEM_L2_MAX``.  After the first three plain cases
+    come plain chains whose every code is 8 bits long (also resumed at
+    ``pos0``), whose every symbol is an escape (rows of ``row_len + 1``,
+    no multiple of 4), and a ``long_len``-symbol row of 0-bit codes."""
     import torch
 
     from .ops import bitstream_torch as bt
@@ -340,8 +369,8 @@ def decode_edge_cases(device, long_len: int = 70_000, row_len: int = 2500):
                       dict(max_len=l, lmax=lmax, pos0=pos0),
                       dict(syms=syms, t=t, lg=lg)))
 
-    def draw(name, n, l):
-        return rng.integers(0, sch[name][1], (n, l)).astype(np.uint8)
+    def draw(name, n, l, gen=rng):
+        return gen.integers(0, sch[name][1], (n, l)).astype(np.uint8)
 
     # four plain channels, one launch
     names = ["type2", "lmax12", "lmax16", "zero_bit"]
@@ -360,6 +389,23 @@ def decode_edge_cases(device, long_len: int = 70_000, row_len: int = 2500):
     starts = np.array([w // 2 - 16, 0, 0, w - 101, 17])
     plain_case("plain C=2: resumed at pos0", names,
                np.stack([draw(k, len(lengths), w) for k in names]), lengths, starts)
+    # every code 8 bits long (a lane that starts inside a code never meets
+    # the true boundaries), also resumed at pos0; these plain cases draw from
+    # a generator of their own, so the run cases below keep their data
+    gen = np.random.default_rng(31)
+    lengths = np.array([w, w - 3, 1, 0, w * 3 // 5])
+    starts = np.array([w // 2, 0, 0, 0, 11])
+    plain_case("plain: fixed 8-bit codes, resumed at pos0", ["flat8"],
+               draw("flat8", len(lengths), w, gen)[None], lengths, starts)
+    # every symbol an escape (a rare symbol of the type-2 scheme: code + 8
+    # bits), in rows whose width is no multiple of 4
+    lengths = np.array([w + 1, w, 1, 0, 33])
+    rare = gen.integers(40, 256, (1, len(lengths), w + 1)).astype(np.uint8)
+    plain_case("plain: every symbol an escape", ["type2"], rare, lengths)
+    # 0-bit codes only (a single-symbol scheme) in a long row
+    lengths = np.array([long_len, 0, 1, 33])
+    plain_case(f"plain: 0-bit codes, a {long_len}-symbol row", ["zero_bit"],
+               np.zeros((1, len(lengths), long_len), np.uint8), lengths)
 
     rchar = ord("f")
 
@@ -480,6 +526,37 @@ def check_decode_case(name, out, expect):
     if not (ok and stats):
         raise AssertionError(f"{name}: decoded symbols {'ok' if ok else 'wrong'}, "
                              f"bits/last {'ok' if stats else 'differ from the encoder'}")
+
+
+def encode_edge_rows(width: int = 9000):
+    """Edge inputs of K1 (ops/emit.encode_plain), NumPy: (label, data (C, N,
+    L) u8, lengths (N,) i32, packed LUTs (C, 256) i32).  Rows of 0, 1, 31,
+    32, 33 symbols and of every width up to ``width``, in four channels of
+    one launch (type-2 escapes, codes of up to 16 bits, 0-bit codes, 8-bit
+    codes); rows whose every symbol is an escape (24-bit emissions that
+    straddle words) and rows of 0-bit codes only, each over ``width``
+    symbols; and a row width no multiple of 16 (rows that take byte loads)."""
+    from .ops import bitstream_torch as bt
+
+    sch = edge_schemes()
+    rng = np.random.default_rng(37)
+
+    def luts(names):
+        return np.stack([bt.scheme_luts(sch[k][0]) for k in names]).astype(np.int32)
+
+    w = width
+    lengths = np.array([0, 1, 31, 32, 33, w, w - 1, w // 2 + 5, 2 * w // 3], np.int32)
+    names = ["type2", "lmax16", "zero_bit", "flat8"]
+    data = np.stack([rng.integers(0, sch[k][1], (len(lengths), w)) for k in names])
+    rare = rng.integers(40, 256, (1, len(lengths), w))
+    ragged = rng.integers(0, 256, (1, len(lengths), w - 5))
+    return [("rows of 0, 1, 31, 32, 33 symbols and up to the width, four schemes",
+             data.astype(np.uint8), lengths, luts(names)),
+            ("every symbol an escape", rare.astype(np.uint8), lengths, luts(["type2"])),
+            ("0-bit codes only", np.zeros((1, len(lengths), w), np.uint8), lengths,
+             luts(["zero_bit"])),
+            (f"width {w - 5} (byte loads)", ragged.astype(np.uint8),
+             np.minimum(lengths, w - 5).astype(np.int32), luts(["lmax16"]))]
 
 
 def tag_edge_cases(device, long_len: int = 70_000):

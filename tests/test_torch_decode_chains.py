@@ -36,10 +36,14 @@ def _pick(cases, fn, word):
     return next(v for k, v in cases.items() if v[0] == fn and word in k)
 
 
-@pytest.mark.parametrize("which, held", [("C=4", (0, 2)), ("C=1", (0,)), ("pos0", (0,))])
+@pytest.mark.parametrize("which, held", [("C=4", (0, 2)), ("C=1", (0,)), ("pos0", (0,)),
+                                         ("fixed 8-bit", (0,)),
+                                         ("every symbol an escape", (0,))])
 def test_plain_chains_match_xla(cases, which, held):
     """Four schemes (type-2 escapes, lmax 12/16 with L2, 0-bit codes) in one
-    launch, lmax-12 tables alone, and chains resumed at pos0.  Every channel
+    launch, lmax-12 tables alone, chains resumed at pos0, chains of 8-bit
+    codes only (also resumed at pos0) and chains whose every symbol is an
+    escape, in rows whose width is no multiple of 4.  Every channel
     must decode its encoded symbols; the channels ``held`` (one XLA compile
     each) must also equal the JAX chain."""
     _, (rects, rlens, f1, f2, sigs, subws), kw, expect = _pick(cases, "decode_plain", which)

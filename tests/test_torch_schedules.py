@@ -1,9 +1,11 @@
-"""NumPy models of the work schedules of two CUDA kernels, which cannot run
+"""NumPy models of the work schedules of four CUDA kernels, which cannot run
 on this host: K8 ``pack_words`` as tiles of a row across blocks with a
-decoupled look-back (ops/csrc/emit.cu), and K5 ``decode_run`` as one warp
-per chain whose lanes speculate, synchronise, scan and write
-(ops/csrc/decode.cu).  Each model follows its kernel step by step at small
-tile and lane sizes and is held against the kernel's plain twin."""
+decoupled look-back and K1 ``encode_plain`` as warps over tiles of a row
+chained by the same look-back (ops/csrc/emit.cu); K5 ``decode_run`` and K4
+``decode_plain`` as one warp per chain, whose lanes speculate, synchronise,
+scan and write (ops/csrc/decode.cu).  Each
+model follows its kernel step by step at small tile and lane sizes and is
+held against the kernel's plain twin."""
 
 import functools
 
@@ -13,7 +15,7 @@ import torch
 
 from dextractor_tpu_torch.ops import bitstream_torch as bt
 from dextractor_tpu_torch.ops import decode2 as d2
-from dextractor_tpu_torch.testing import decode_edge_cases
+from dextractor_tpu_torch.testing import decode_edge_cases, encode_edge_rows
 
 M32 = 0xFFFFFFFF
 
@@ -265,3 +267,251 @@ def test_decode_run_warp_schedule(case, lane_bits, cut):
         assert got[0] == runs[r].tolist(), (label, r)
         assert got[1] == lits[r].tolist(), (label, r)
         assert (got[2], got[3]) == (int(bits[r]), int(last[r])), (label, r)
+
+
+# ---------------------------------------------------------------------------
+# K4: one warp per (channel, chain)
+# ---------------------------------------------------------------------------
+
+_INF = 1 << 40      # the symbols of a lane that stalls on a 0-bit code
+
+
+def decode_plain_warp(ch, rlen, max_len, pos0, lane_bits):
+    """The K4 kernel's schedule for one plain chain (``ch``: a ``_Chain``
+    read in its literal phase, whose escape is the plain signal): windows
+    of 32 lanes of ``lane_bits`` bits, the window's words staged; lanes
+    guess their first bit as a start, re-decode from their left
+    neighbour's exit until no start up to the first stalled lane changes,
+    scan their symbol counts and decode again to write.  A 0-bit code that
+    is no escape stalls its lane: the serial chain repeats it to the end.
+    Returns (syms, bits, last)."""
+    lanes = 32
+    n = max(0, min(rlen, max_len))
+    out = np.zeros(max_len, np.int64)
+    writes = np.zeros(max_len, np.int64)
+    if n == 0:
+        return out, pos0, 0
+    pos, em = pos0, 0
+    while True:
+        w0, base = pos, pos >> 5
+
+        def step(q):
+            assert 0 <= (q >> 5) - base and (q >> 5) + 1 - base < lane_bits + 2, \
+                "a read outside the window's staged words"
+            return ch.step(q, 1)
+
+        def walk(i, q):
+            """Lane i from q to its end bit: (exit, symbols, stalled)."""
+            c = 0
+            while q < w0 + (i + 1) * lane_bits:
+                _, q2, width = step(q)
+                if width == 0:
+                    return q, c, True
+                q, c = q2, c + 1
+            return q, c, False
+
+        starts = [pos] + [w0 + i * lane_bits for i in range(1, lanes)]
+        for _ in range(lanes + 1):                  # synchronise
+            res = [walk(i, starts[i]) for i in range(lanes)]
+            new = [starts[0]] + [r[0] for r in res[:-1]]
+            stalls = [i for i, r in enumerate(res) if r[2]]
+            s = stalls[0] if stalls else lanes - 1
+            moved = new[:s + 1] != starts[:s + 1]
+            starts = new
+            if not moved:
+                break
+        assert not moved, "the lanes did not settle within 32 rounds"
+        counts = [r[1] + (_INF if r[2] else 0) for r in res]
+        excl = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        end = None
+        for i in range(lanes):                      # the write pass
+            ec, q = em + int(excl[i]), starts[i]
+            while ec < n and q < w0 + (i + 1) * lane_bits:
+                sym, q2, width = step(q)
+                if width == 0:                      # the rest of the chain is sym
+                    out[ec:n] = sym & 0xFF
+                    writes[ec:n] += 1
+                    end = (q, 0)
+                    break
+                out[ec] = sym & 0xFF
+                writes[ec] += 1
+                ec, q = ec + 1, q2
+                if ec == n:
+                    end = (q, width)
+                    break
+            if end is not None:
+                break
+        if end is not None:
+            assert (writes[:n] == 1).all(), "a symbol written other than once"
+            return out, end[0], end[1]
+        pos, em = res[-1][0], em + sum(counts)
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_cases():
+    return [c for c in decode_edge_cases("cpu", long_len=600, row_len=300)
+            if c[1] == "decode_plain"]
+
+
+@pytest.mark.parametrize("lane_bits", [32, 64])
+@pytest.mark.parametrize("case", range(6))
+def test_decode_plain_warp_schedule(case, lane_bits):
+    """The six plain edge cases of testing.decode_edge_cases (four schemes in
+    one launch with type-2 escapes, L2 tables and 0-bit codes; lmax 12
+    alone; resumed at pos0; every code 8 bits long, resumed too; every
+    symbol an escape; a 600-symbol chain of 0-bit codes) against
+    decode2.plain_chains: symbols, bits and last."""
+    label, _, args, kw, _ = _plain_cases()[case]
+    rects, rlens, f1, f2, sigs, subws = args
+    syms, bits, last = d2.plain_chains(*args, **kw)
+    pos0 = kw["pos0"]
+    for c, rect in enumerate(rects):
+        for r in range(rlens.shape[0]):
+            ch = _Chain(rect[r].tolist(), f1[c].tolist(), f1[c].tolist(), f2.tolist(),
+                        subws[c], kw["lmax"], sigs[c])
+            got = decode_plain_warp(ch, int(rlens[r]), kw["max_len"],
+                                    0 if pos0 is None else int(pos0[c, r]), lane_bits)
+            assert got[0].tolist() == syms[c, r].tolist(), (label, c, r)
+            assert (got[1], got[2]) == (int(bits[c, r]), int(last[c, r])), (label, c, r)
+
+
+# ---------------------------------------------------------------------------
+# K1: warps over tiles of a row
+# ---------------------------------------------------------------------------
+
+def _emission(pk, sym):
+    """(value, width, last granule) of a symbol's packed LUT entry
+    ``bits << 6 | len << 1 | esc``: an escape is code || the 8-bit symbol."""
+    bits, ln = pk >> 6, (pk >> 1) & 31
+    if pk & 1:
+        return (bits << 8) | sym, ln + 8, 8
+    return bits, ln, ln
+
+
+def encode_plain_tiles(data, lengths, luts, tile, per_lane, rng):
+    """The K1 kernel's schedule: each (channel, row) cut into tiles of
+    ``tile`` symbols taken in ticket (row-major) order, one warp a tile,
+    walked in steps of 32 lanes x ``per_lane`` consecutive symbols.  A tile
+    past the row's length does nothing.  A tile that does not hold the
+    row's last symbol first folds its (bit count, last <= 32 bits) and
+    publishes it; a later tile looks back over the row's earlier tiles
+    (each seen with its inclusive prefix or, at random, its aggregate).
+    Each step: a warp scan of the lanes' widths gives each lane its bit
+    offset, the lanes OR their words into a window whose word 0 holds the
+    carried bits, the window's full words are stored and its partial last
+    word carried; the row's last tile stores the partial last word and t,
+    and the lane with symbol len - 1 lg.  Returns (words, t, lg) as the
+    twin does, with words past ceil(t/32) zero; every word up to it is
+    stored once, none past it."""
+    c, n_rows, width = data.shape
+    step = 32 * per_lane
+    tpr = max(1, -(-width // tile))
+    mp = width + 1
+    out = np.zeros((c, n_rows, mp), np.int64)
+    writes = np.zeros((c, n_rows, mp), np.int64)
+    t_out = np.full((c, n_rows), -1, np.int64)
+    lg_out = np.full((c, n_rows), -1, np.int64)
+    agg, inc = {}, {}
+    for ticket in range(c * n_rows * tpr):
+        r, k = divmod(ticket, tpr)
+        ch, row = divmod(r, n_rows)
+        ln = max(0, min(int(lengths[row]), width))
+        lo = k * tile
+        if k > 0 and lo >= ln:
+            continue
+        hi = min(lo + tile, ln)
+        last_tile = hi == ln
+        lut = [int(x) for x in luts[ch]]
+        ems = [_emission(lut[int(data[ch, row, j])], int(data[ch, row, j])) + (j,)
+               for j in range(lo, hi)]
+        excl = (0, 0)
+        if not last_tile:
+            pair = (0, 0)
+            for v, w, _, _ in ems:
+                pair = _combine(pair, (w, v))
+            agg[ticket] = pair
+            if k == 0:
+                inc[ticket] = pair
+        if k > 0:
+            for j in range(k - 1, -1, -1):          # look back in the row
+                t = r * tpr + j
+                if t in inc and rng.random() < 0.5:
+                    excl = _combine(inc[t], excl)
+                    break
+                excl = _combine(agg[t], excl)
+            if not last_tile:
+                inc[ticket] = _combine(excl, agg[ticket])
+        bit = excl[0]
+        o = bit & 31
+        carry = (excl[1] << (32 - o)) & M32 if o else 0
+        for s0 in range(lo, hi, step):
+            lanes = [[e for e in ems if s0 + i * per_lane <= e[3] < s0 + (i + 1) * per_lane]
+                     for i in range(32)]
+            tots = [sum(e[1] for e in em) for em in lanes]
+            offs = np.concatenate([[0], np.cumsum(tots)[:-1]])
+            o = bit & 31
+            step_bits = sum(tots)
+            win = [0] * ((o + step_bits + 31) // 32 + 1)
+            win[0] = carry
+            for lane, em in enumerate(lanes):       # each lane's accumulator
+                b = o + int(offs[lane])
+                wi, fill, cur = b >> 5, b & 31, 0
+                for v, w, g, j in em:
+                    if j == ln - 1:
+                        lg_out[ch, row] = g
+                    if w == 0:
+                        continue
+                    room = 32 - fill
+                    if w < room:
+                        cur |= v << (room - w)
+                        fill += w
+                    else:
+                        cur |= v >> (w - room)
+                        win[wi] |= cur & M32
+                        wi, fill = wi + 1, w - room
+                        cur = (v << (32 - fill)) & M32 if fill else 0
+                if fill:
+                    win[wi] |= cur & M32
+            full = (o + step_bits) >> 5
+            for i in range(full):
+                out[ch, row, (bit >> 5) + i] = win[i]
+                writes[ch, row, (bit >> 5) + i] += 1
+            carry = win[full] if (o + step_bits) & 31 else 0
+            bit += step_bits
+        if last_tile:
+            if bit & 31:
+                out[ch, row, bit >> 5] = carry
+                writes[ch, row, bit >> 5] += 1
+            t_out[ch, row] = bit
+            if ln == 0:
+                lg_out[ch, row] = 0
+    raw = (t_out + 31) >> 5
+    assert (t_out >= 0).all() and (lg_out >= 0).all()
+    assert (writes == (np.arange(mp) < raw[..., None])).all(), \
+        "a word stored other than once, or past ceil(t/32)"
+    return out, t_out, lg_out
+
+
+@functools.lru_cache(maxsize=None)
+def _encode_rows():
+    return encode_edge_rows(600)
+
+
+@pytest.mark.parametrize("tile, per_lane", [(64, 1), (256, 4)])
+@pytest.mark.parametrize("case", range(4))
+def test_encode_plain_tile_schedule(case, tile, per_lane):
+    """testing.encode_edge_rows at width 600 (rows of 0, 1, 31, 32, 33
+    symbols and up to several tiles, type-2 escapes, codes of up to 16 bits,
+    0-bit and 8-bit codes; all escapes; 0-bit codes only; a width of 595)
+    against bitstream_torch.encode_plain_ref: words up to ceil(t/32), t,
+    lg."""
+    label, data, lengths, luts = _encode_rows()[case]
+    words, t, lg = bt.encode_plain_ref(torch.from_numpy(data), torch.from_numpy(lengths),
+                                       torch.from_numpy(luts))
+    rng = np.random.default_rng(case * 7 + tile)
+    gw, gt, glg = encode_plain_tiles(data, lengths, luts, tile, per_lane, rng)
+    assert gt.tolist() == t.tolist() and glg.tolist() == lg.tolist(), label
+    raw = (gt + 31) >> 5
+    ref = np.where(np.arange(words.shape[2]) < raw[..., None],
+                   words.numpy().astype(np.int64) & M32, 0)
+    np.testing.assert_array_equal(gw, ref, err_msg=label)
