@@ -19,8 +19,13 @@ Phases, each printing one line (or a few) before the final JSON lines:
    the card against their plain PyTorch twins, bit for bit, at the shapes of
    the 16 MB uniform batch and on rows of up to 70,000 symbols; K1 also on
    testing.encode_edge_rows (rows of 0, 1, 31, 32, 33 symbols and over
-   several tiles, all escapes, 0-bit codes only, a width no multiple of 16)
-   and timed at the widest bucket of the long-read batch that K1 takes; K9
+   several tiles, all escapes, 0-bit codes only, a width no multiple of 16),
+   K2 and K3 on testing.run_edge_rows (rows of 0-33 symbols, no literal,
+   literals only at the ends, runs of 255 and 256 and across tiles, runs
+   of 65,535 and 65,536 and trailing runs over 65,535 in 70,000-symbol
+   rows, a width no multiple of 4; K3 with delChar and with -1); K1 and K2
+   timed at the widest bucket of the long-read batch that K1/K2 take, K3 at
+   the widest bucket of the long-read batch; K9
    (lut_gather) and K8 (pack_words) on what the encode step's emission
    route gives them at the widest bucket of the long-read batch (61,440
    symbols, 122,881 slots on the RLE channel) and on edge rows (0 slots,
@@ -36,6 +41,8 @@ Phases, each printing one line (or a few) before the final JSON lines:
 5. encode step: median stream time of qv_encode_step on the uniform batch,
    and the share of it the card was busy; the stream time of the widest
    long-read bucket's four QV channels through each route (K1/K2, K9/K8);
+   the device time of each encode kernel over one encode of the long-read
+   batch, its launches and their mean;
 6. decode kernels: K4 (decode_plain: ins, mrg, sub in one launch, and one
    channel), K5 (decode_run) on delQV and K6 (expand_runs) with the delTag
    codes on delQV at the uniform batch's decode shapes, K5 and K6 on subQV
@@ -228,9 +235,10 @@ def phase_environment():
 
 
 def _kernel_name(mangled: str) -> str:
-    """The ``*_kernel`` name inside a mangled symbol: a run of digits that
-    gives the length of the name after it (an anonymous namespace adds a
-    prefix that may end in digits too)."""
+    """The ``*_kernel`` name inside a mangled symbol: the shortest name that a
+    run of digits gives the length of (an anonymous namespace adds a prefix
+    that may end in digits too, and a length of its own that spans it)."""
+    names = []
     for m in re.finditer(r"\d+", mangled):
         digits = m.group()
         for i in range(len(digits)):
@@ -238,8 +246,8 @@ def _kernel_name(mangled: str) -> str:
             name = mangled[m.end():m.end() + n]
             if (len(name) == n and name.endswith("_kernel")
                     and re.fullmatch(r"[A-Za-z_]\w*", name)):
-                return name
-    return mangled
+                names.append(name)
+    return min(names, key=len) if names else mangled
 
 
 def ptxas_summary(out: str):
@@ -494,9 +502,40 @@ def widest_fused_plain(long: bytes, dev):
                   f"{tuple(args[0].shape)})")
 
 
+def widest_fused_run(long: bytes, dev):
+    """K2's input at the widest bucket of ``long`` that the encode step
+    sends through K1/K2: (data, lengths, LUTs, run LUTs, rchars) of its RLE
+    QV channels on ``dev``, and a label."""
+    import torch
+    from dextractor_tpu_torch.testing import run_rows, widest_bucket_batch, widest_fused_bucket
+
+    i, width = widest_fused_bucket(long)
+    args = tuple(torch.from_numpy(a).to(dev) for a in run_rows(widest_bucket_batch(long, i)))
+    if not args[0].shape[0]:
+        raise AssertionError("the long-read batch has no RLE channel")
+    return args, (f"encode_run (widest K2 bucket of the long-read batch, width {width}, "
+                  f"{tuple(args[0].shape)})")
+
+
+def widest_tags(long: bytes, dev):
+    """K3's input at the widest bucket of ``long``, as qv_encode_step gives
+    it (tags, delQV, lengths, delChar, number LUT) on ``dev``, and a label."""
+    import torch
+    from dextractor_tpu_torch.testing import widest_bucket_batch
+
+    (streams, lengths, _, _, rchars, nlut), _ = widest_bucket_batch(long)
+    s = torch.from_numpy(streams).to(dev)
+    args = (s[1], s[0], torch.from_numpy(lengths).to(dev),
+            torch.from_numpy(rchars[0:1].copy()).to(dev), torch.from_numpy(nlut).to(dev))
+    return args, (f"pack_tags (widest bucket of the long-read batch, width {streams.shape[2]}, "
+                  f"{tuple(args[0].shape)})")
+
+
 def phase_encode_kernels(device, uniform: bytes, long: bytes, wide_len: int = 70_000):
     """K1-K3 against their twins on ``device``, at the uniform batch's
-    shapes and on ``wide_rows(wide_len)``; K9 and K8 on the inputs that the
+    shapes and on ``wide_rows(wide_len)``, K1 also on ``encode_edge_rows``
+    and K2 and K3 on ``run_edge_rows`` (with rows of ``wide_len`` symbols
+    when it is at least 66,000); K9 and K8 on the inputs that the
     emission route gives them at the widest bucket of ``long`` and on edge
     rows (``wide_rows``' emissions, ``emission_edges``); on the card also
     their times (see ``measure``).  Returns {kernel: {max_abs_err, times...}}."""
@@ -504,7 +543,7 @@ def phase_encode_kernels(device, uniform: bytes, long: bytes, wide_len: int = 70
     from dextractor_tpu_torch.ops import bitstream_torch as bt
     from dextractor_tpu_torch.ops import emit
     from dextractor_tpu_torch.parallel.pipeline import _pack_tags
-    from dextractor_tpu_torch.testing import encode_edge_rows, step_batch
+    from dextractor_tpu_torch.testing import encode_edge_rows, run_edge_rows, step_batch
 
     (streams, lengths, sym, run, rchars, nlut), run_on = step_batch(uniform)
     dev = torch.device(device)
@@ -572,18 +611,49 @@ def phase_encode_kernels(device, uniform: bytes, long: bytes, wide_len: int = 70
             _check_words("encode_plain", emit.encode_plain(*args), bt.encode_plain_ref(*args)))
         log(f"[kernel] encode_plain edge rows ({label}, {tuple(data.shape)}) bit-identical "
             "to twin")
+    long_len = wide_len if wide_len >= 66_000 else 0
+    for label, data, lens, sl, rl, rc, tags in run_edge_rows(min(9000, wide_len), long_len):
+        a = tuple(torch.from_numpy(x).to(dev) for x in (data, lens, sl, rl, rc))
+        res["encode_run"]["max_abs_err"] = max(
+            res["encode_run"]["max_abs_err"],
+            _check_words("encode_run", emit.encode_run(*a), bt.encode_run_ref(*a)))
+        for dc in (int(rc[0]), -1):
+            t_a = (torch.from_numpy(tags).to(dev), a[0][0], a[1],
+                   torch.tensor([dc], dtype=torch.int32, device=dev), nl)
+            res["pack_tags"]["max_abs_err"] = max(
+                res["pack_tags"]["max_abs_err"], _check_tags(emit.pack_tags(*t_a), _pack_tags(*t_a)))
+        log(f"[kernel] encode_run and pack_tags (delChar {int(rc[0])} and -1) edge rows "
+            f"({label}, {tuple(data.shape)}) bit-identical to their twins")
     if on_card(dev):
-        # K1 at the widest bucket of the long-read batch that takes K1/K2
+        # K1 and K2 at the widest bucket of the long-read batch that takes
+        # K1/K2, K3 at the widest bucket of the long-read batch
+        wide = {}
         args, label = widest_fused_plain(long, dev)
         out = emit.encode_plain(*args)
         _check_words(label, out, bt.encode_plain_ref(*args))
         c, n, width = args[0].shape
         n_sym = int(args[1].long().clamp(max=width).sum())
-        wide = measure("encode_plain", lambda: emit.encode_plain(*args),
-                       lambda: bt.encode_plain_ref(*args),
-                       c * (n_sym + 1024 + 8 * n) + 4 * n + _words_out(out[1]), label=label)
-        res["encode_plain"].update({f"widest_{k}": wide[k] for k in (
-            "ms", "warm_ms", "plain_ms", "bound_ms", "event_ms", "bytes")})
+        wide["encode_plain"] = measure(
+            "encode_plain", lambda: emit.encode_plain(*args), lambda: bt.encode_plain_ref(*args),
+            c * (n_sym + 1024 + 8 * n) + 4 * n + _words_out(out[1]), label=label)
+        r_args, label = widest_fused_run(long, dev)
+        out = emit.encode_run(*r_args)
+        _check_words(label, out, bt.encode_run_ref(*r_args))
+        wide["encode_run"] = measure(
+            "encode_run", lambda: emit.encode_run(*r_args), lambda: bt.encode_run_ref(*r_args),
+            r_args[0].shape[0] * (n_sym + 2052 + 8 * n) + 4 * n + _words_out(out[1]),
+            label=label)
+        t_args, label = widest_tags(long, dev)
+        out = emit.pack_tags(*t_args)
+        _check_tags(out, _pack_tags(*t_args))
+        width = t_args[0].shape[1]
+        n_sym = int(t_args[2].long().clamp(max=width).sum())
+        wide["pack_tags"] = measure(
+            "pack_tags", lambda: emit.pack_tags(*t_args), lambda: _pack_tags(*t_args),
+            2 * n_sym + 8 * len(t_args[2]) + 260 + out[0].numel(), label=label)
+        for name, m in wide.items():
+            res[name].update({f"widest_{k}": m[k] for k in (
+                "ms", "warm_ms", "plain_ms", "bound_ms", "event_ms", "bytes")})
 
     # K9 and K8 on what the emission route gives them at the widest bucket
     from dextractor_tpu_torch.ops import lut
@@ -735,6 +805,47 @@ def phase_encode_slice(device, cases):
     return launches, twins, encoded
 
 
+def encode_long_totals(long: bytes):
+    """Device time of each encode kernel over one
+    encode_quiva_to_dexqv(device=True) of the long-read batch (profiler):
+    its launches times its time on the main path.  As in phase_decode_long,
+    one trace holds two encodes and the second one's device operations are
+    counted; a trace that holds fewer launches of a kernel than the launch
+    counters saw is taken again, up to three times, and the line says how
+    many it holds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from dextractor_tpu_torch.codecs.qv_codec import encode_quiva_to_dexqv
+    from dextractor_tpu_torch.utils import dispatch
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            encode_quiva_to_dexqv(long, device="cuda")
+            torch.cuda.synchronize()
+            before = dict(dispatch.LAUNCHES)
+            with record_function("second_encode"):
+                encode_quiva_to_dexqv(long, device="cuda")
+                torch.cuda.synchronize()
+        launched = {k: dispatch.LAUNCHES[k] - before[k] for k in ENCODE_KERNELS}
+        cuda = torch.autograd.DeviceType.CUDA
+        mark = min(e.time_range.start for e in prof.events()
+                   if e.name == "second_encode" and e.device_type != cuda)
+        ev = [e for e in prof.events() if e.device_type == cuda
+              and e.name != "second_encode" and e.time_range.start >= mark]
+        traced = {k: [e.time_range.elapsed_us() / 1000 for e in ev if f"{k}_kernel" in e.name]
+                  for k in ENCODE_KERNELS}
+        if all(len(traced[k]) == launched[k] for k in ENCODE_KERNELS):
+            break
+        log(f"[profiler] a trace of the long-read encode holds "
+            f"{ {k: len(v) for k, v in traced.items()} } of its launches {launched}; "
+            "tracing again")
+    parts = [f"{k} {sum(traced[k])} ms in {len(traced[k])} of {launched[k]} launches "
+             f"(mean {sum(traced[k]) / max(1, len(traced[k]))} ms)" for k in ENCODE_KERNELS]
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1000
+    log(f"[encode long] long-read batch, device time of each encode kernel (profiler, the "
+        f"second of two encodes in one trace): {'; '.join(parts)}; all device ops {busy} ms")
+
+
 def phase_encode_step(device, uniform: bytes, long: bytes):
     import torch
     from dextractor_tpu_torch.parallel import pipeline
@@ -776,6 +887,7 @@ def phase_encode_step(device, uniform: bytes, long: bytes):
         f"{ms} ms median (CUDA events), {payload / ms / 1e6} GB/s of "
         f"{payload} payload bytes; device busy {busy} ms in {n_ops} device "
         f"ops (profiler), busy share {share}")
+    encode_long_totals(long)
 
 
 def _repeat_interleave(runs, lits, rchar: int):

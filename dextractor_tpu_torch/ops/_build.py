@@ -34,8 +34,9 @@ _LL = ctypes.c_longlong
 # 32-bit int and cut the address
 ARGTYPES = {
     "dxt_encode_plain": [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _P, ctypes.c_uint, _P],
-    "dxt_encode_run": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _P],
-    "dxt_pack_tags": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _P],
+    "dxt_encode_run": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _P, ctypes.c_uint,
+                       _P],
+    "dxt_pack_tags": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _P, ctypes.c_uint, _P],
     "dxt_pack_words": [_P, _P, _P, _I, _LL, _P, ctypes.c_uint, _P],
     "dxt_lut_gather": [_P, _I, _P, _P, _LL, _P],
     "dxt_decode_plain": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P, _P,

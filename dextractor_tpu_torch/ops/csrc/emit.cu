@@ -30,26 +30,23 @@
 //
 // Bound on the H100: by bytes, device memory.  A symbol is one byte in; K1
 // writes at most 24 bits for it (usually 4-6), K2 at most 56 per literal,
-// K3 2 bits.  The work per symbol is one 256-entry LUT lookup, a few shifts
-// and a share of a scan.  At 2,000-symbol rows instruction issue and the
-// latency of the scans and barriers, not memory, bound them (PERF.md,
-// Findings).  K1 (see encode_plain_kernel) gives each tile of a row (the
-// row's width, or narrower where a launch has few rows) to one warp: a
-// shuffle scan of the lanes' widths a step at a time, each lane's words
-// built in a register and ORed once into a per-warp shared window, no block
-// barrier; the tiles of a wider row chain by K8's decoupled look-back.  K2
-// and K3:
-// one thread block owns one (channel, row) and walks it in chunks of kChunk
-// symbols, four per thread.  A block scan of the emission widths (carried
-// across chunks) gives every emission its bit offset; K2 first runs a
-// max-scan of literal positions to recover each literal's preceding run
-// (bitstream_jax.py:126).  Emissions are ORed into a shared-memory window
-// with shared atomics, and each finished 32-bit word (byte for K3) goes to
-// device memory exactly once, coalesced.  Nothing is zero-filled: K1/K2
-// leave the words past a row's ceil(t/32) unwritten (callers read rows up to
-// that count), K3 writes its whole row including the zero tail.  The TPU
-// kernels' 8,192-column VMEM cap does not apply: a row of any width streams
-// through the same window.
+// K3 reads a tag and a delQV byte and writes 2 bits.  The work per symbol is
+// a 256-entry table lookup, a few shifts and a share of a warp scan.  At
+// 2,000-symbol rows instruction issue and the latency of the scans and of
+// each warp's first loads, not memory, bound them (PERF.md, Findings).  K1, K2 and K3 share one design
+// (see encode_plain_kernel): each (channel, row) is cut into tiles, one warp
+// a tile; a warp walks its tile in steps of 32 lanes, a shuffle scan of the
+// lanes' widths gives each lane its bit offset, each lane ORs its words into
+// a per-warp shared window, and the window's finished words are stored
+// coalesced, with no block barrier; the tiles of a wider row chain by K8's
+// decoupled look-back (publish, look_back), so a bucket of few wide rows
+// still fills the card.  K2's run before a tile's first literal needs the
+// row's last literal before the tile, which the tiles publish first and
+// find by a look-back of their own (look_back_lit).  Nothing is zero-filled
+// by K1/K2: they leave the words past a row's ceil(t/32) unwritten (callers
+// read rows up to that count); K3 writes its whole row, the zero tail
+// included.  The TPU kernels' 8,192-column VMEM cap does not apply: a row
+// of any width streams through the same window.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,45 +56,29 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kItems = 4;
-constexpr int kChunk = kThreads * kItems;
-constexpr int kWarps = kThreads / 32;
 
-using dxt::MaxOp;
 using dxt::SumOp;
 
-template <class Op>
-__device__ __forceinline__ int block_scan(int x, int identity, Op op, int* s_warp,
-                                          int* total) {
-  return dxt::block_scan<kThreads>(x, identity, op, s_warp, total);
+// A symbol's entry of K1's and K2's shared tables, value << 6 | escape << 5
+// | width, from its packed LUT entry pk = bits << 6 | len << 1 | esc
+// (bitstream_jax.scheme_luts).  An escape is code || 8-bit literal
+// (Encode, QV.c:397-402); codes are <= 16 bits, so a width is <= 24.
+__device__ __forceinline__ uint32_t sym_entry(int pk, int sym) {
+  const uint32_t bits = static_cast<uint32_t>(pk) >> 6;
+  const uint32_t len = static_cast<uint32_t>(pk >> 1) & 31u;
+  if (pk & 1) return (bits << 8 | static_cast<uint32_t>(sym)) << 6 | 32u | (len + 8u);
+  return bits << 6 | len;
 }
 
-struct Emission {
-  uint32_t v;  // value, right-aligned
-  int n;       // width in bits (<= 32)
-  int gran;    // width of its last granule: 8/16 after an escape, else n
-};
-
-// Packed LUT entry: bits << 6 | len << 1 | esc (bitstream_jax.scheme_luts).
-// An escape is code || 8-bit literal (Encode, QV.c:397-402).
-__device__ __forceinline__ Emission sym_emission(const int* lut, int sym) {
-  const int pk = lut[sym];
-  const uint32_t bits = static_cast<uint32_t>(pk) >> 6;
-  const int len = (pk >> 1) & 31;
-  if (pk & 1) return {(bits << 8) | static_cast<uint32_t>(sym), len + 8, 8};
-  return {bits, len, len};
-}
-
-// Run code of min(run, 255); an escape is code || (run & 0xFFFF)
-// (Encode_Run, QV.c:468-487).
-__device__ __forceinline__ Emission run_emission(const int* lut, int run) {
-  const int pk = lut[run < 255 ? run : 255];
-  const uint32_t bits = static_cast<uint32_t>(pk) >> 6;
-  const int len = (pk >> 1) & 31;
-  if (pk & 1) {
-    return {(bits << 16) | (static_cast<uint32_t>(run) & 0xFFFFu), len + 16, 16};
-  }
-  return {bits, len, len};
+// Fill a warp's 256-entry shared table with f(entry i of the global table
+// src, i): eight entries a lane, their loads issued together.
+template <class T, class F>
+__device__ __forceinline__ void fill_table(const T* src, uint32_t* dst, int lane, F f) {
+  T x[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = src[lane + 32 * j];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) dst[lane + 32 * j] = f(x[j], lane + 32 * j);
 }
 
 // OR an emission of n >= 1 bits into the MSB-first word window at bit offset
@@ -113,175 +94,9 @@ __device__ __forceinline__ void put_bits(uint32_t* s, int bit, uint32_t v, int n
   }
 }
 
-// The window s holds the row's bits [32 * (carry >> 5), end).  Write its
-// finished words to dst and move the unfinished one to s[0].
-__device__ __forceinline__ void flush_words(uint32_t* s, uint32_t* dst,
-                                            long long carry, long long end) {
-  __syncthreads();  // every OR into s is done
-  const long long base = carry >> 5;
-  const int full = static_cast<int>((end >> 5) - base);
-  for (int i = threadIdx.x; i < full; i += kThreads) dst[base + i] = s[i];
-  const uint32_t part = s[full];
-  __syncthreads();
-  for (int i = threadIdx.x; i <= full; i += kThreads) s[i] = i == 0 ? part : 0u;
-  __syncthreads();
-}
-
 __device__ __forceinline__ int clamp_len(int len, long long width) {
   if (len < 0) return 0;
   return len > width ? static_cast<int>(width) : len;
-}
-
-__global__ void __launch_bounds__(kThreads)
-encode_run_kernel(const uint8_t* __restrict__ data, const int* __restrict__ lengths,
-                  const int* __restrict__ sym_luts, const int* __restrict__ run_luts,
-                  const int* __restrict__ rchars, uint32_t* __restrict__ words,
-                  int* __restrict__ t_out, int* __restrict__ lg_out, int n_rows,
-                  long long width, long long mp) {
-  constexpr int kStage = 2 * kChunk + 2;  // <= 64 bits per literal, plus the carry word
-  __shared__ int s_slut[256];
-  __shared__ int s_rlut[256];
-  __shared__ uint32_t s_stage[kStage];
-  __shared__ int s_warp[kWarps];
-
-  const int row = blockIdx.x;
-  const int ch = blockIdx.y;
-  const long long r = static_cast<long long>(ch) * n_rows + row;
-  const uint8_t* src = data + r * width;
-  uint32_t* dst = words + r * mp;
-  const int len = clamp_len(lengths[row], width);
-  const int rchar = rchars[ch];
-  for (int i = threadIdx.x; i < 256; i += kThreads) {
-    s_slut[i] = sym_luts[ch * 256 + i];
-    s_rlut[i] = run_luts[ch * 256 + i];
-  }
-  for (int i = threadIdx.x; i < kStage; i += kThreads) s_stage[i] = 0u;
-  __syncthreads();
-
-  long long carry = 0;
-  int last_lit = -1;  // column of the last literal in earlier chunks
-  for (int c0 = 0; c0 < len; c0 += kChunk) {
-    int sym[kItems];
-    int mx = -1;
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int col = c0 + threadIdx.x * kItems + k;
-      sym[k] = col < len ? src[col] : rchar;
-      if (col < len && sym[k] != rchar) mx = col;
-    }
-    int chunk_last;
-    int prev = block_scan(mx, -1, MaxOp(), s_warp, &chunk_last);
-    if (last_lit > prev) prev = last_lit;
-
-    Emission re[kItems], se[kItems];
-    int tot = 0;
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int col = c0 + threadIdx.x * kItems + k;
-      re[k] = {0u, 0, 0};
-      se[k] = {0u, 0, 0};
-      if (col < len && sym[k] != rchar) {  // one (run, literal) pair per literal
-        re[k] = run_emission(s_rlut, col - prev - 1);
-        se[k] = sym_emission(s_slut, sym[k]);
-        prev = col;
-      }
-      tot += re[k].n + se[k].n;
-    }
-    int total;
-    int bit = static_cast<int>(carry & 31) + block_scan(tot, 0, SumOp(), s_warp, &total);
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      if (re[k].n) put_bits(s_stage, bit, re[k].v, re[k].n);
-      bit += re[k].n;
-      if (se[k].n) put_bits(s_stage, bit, se[k].v, se[k].n);
-      bit += se[k].n;
-    }
-    const long long end = carry + total;
-    flush_words(s_stage, dst, carry, end);
-    carry = end;
-    if (chunk_last > last_lit) last_lit = chunk_last;
-  }
-
-  if (threadIdx.x == 0) {
-    // the trailing run after the last literal, when it is not empty
-    const int trail = len - last_lit - 1;
-    long long t = carry;
-    int lg = 0;
-    if (trail > 0) {
-      const Emission te = run_emission(s_rlut, trail);
-      if (te.n) put_bits(s_stage, static_cast<int>(carry & 31), te.v, te.n);
-      t += te.n;
-      lg = te.gran;
-    } else if (last_lit >= 0) {
-      lg = sym_emission(s_slut, src[last_lit]).gran;
-    }
-    const long long base = carry >> 5;
-    for (long long w = base; w < ((t + 31) >> 5); ++w) dst[w] = s_stage[w - base];
-    t_out[r] = static_cast<int>(t);
-    lg_out[r] = lg;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-pack_tags_kernel(const uint8_t* __restrict__ tags, const uint8_t* __restrict__ dels,
-                 const int* __restrict__ lengths, const int* __restrict__ del_char_p,
-                 const uint8_t* __restrict__ number_lut, uint8_t* __restrict__ packed,
-                 int* __restrict__ clens, long long width, long long wbytes) {
-  constexpr int kStage = kChunk / 4 + 2;  // one slot per packed byte, plus the carry byte
-  __shared__ uint32_t s_lut[256];
-  __shared__ uint32_t s_stage[kStage];
-  __shared__ int s_warp[kWarps];
-
-  const long long row = blockIdx.x;
-  const uint8_t* tg = tags + row * width;
-  const uint8_t* dl = dels + row * width;
-  uint8_t* dst = packed + row * wbytes;
-  const int len = clamp_len(lengths[row], width);
-  const int del_char = *del_char_p;
-  for (int i = threadIdx.x; i < 256; i += kThreads) s_lut[i] = number_lut[i];
-  for (int i = threadIdx.x; i < kStage; i += kThreads) s_stage[i] = 0u;
-  __syncthreads();
-
-  long long carry = 0;  // tags kept by earlier chunks
-  for (int c0 = 0; c0 < len; c0 += kChunk) {
-    uint32_t code[kItems];
-    bool keep[kItems];
-    int cnt = 0;
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int col = c0 + threadIdx.x * kItems + k;
-      keep[k] = col < len && (del_char < 0 || dl[col] != del_char);
-      code[k] = keep[k] ? s_lut[tg[col]] : 0u;
-      cnt += keep[k];
-    }
-    int total;
-    // rank relative to the first code of byte carry >> 2
-    int rank = static_cast<int>(carry & 3) + block_scan(cnt, 0, SumOp(), s_warp, &total);
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      if (keep[k]) {  // first code in bits 7-6 (DB.c:334)
-        atomicOr(&s_stage[rank >> 2], code[k] << (6 - 2 * (rank & 3)));
-        ++rank;
-      }
-    }
-    const long long end = carry + total;
-    __syncthreads();
-    const long long base = carry >> 2;
-    const int full = static_cast<int>((end >> 2) - base);
-    for (int i = threadIdx.x; i < full; i += kThreads) {
-      dst[base + i] = static_cast<uint8_t>(s_stage[i]);
-    }
-    const uint32_t part = s_stage[full];
-    __syncthreads();
-    for (int i = threadIdx.x; i <= full; i += kThreads) s_stage[i] = i == 0 ? part : 0u;
-    __syncthreads();
-    carry = end;
-  }
-  if (threadIdx.x == 0) {
-    if (carry & 3) dst[carry >> 2] = static_cast<uint8_t>(s_stage[0]);
-    clens[row] = static_cast<int>(carry);
-  }
-  for (long long b = ((carry + 3) >> 2) + threadIdx.x; b < wbytes; b += kThreads) dst[b] = 0;
 }
 
 // K8: emissions (v, n), MSB-first at bit offset cumsum(n) - n of their row
@@ -313,7 +128,8 @@ constexpr int kTile = kTileThreads * kTileItems;  // slots per tile
 constexpr unsigned kAgg = 1u, kInc = 2u;           // flag = epoch << 2 | status
 
 struct TileState {   // one per tile, 32 bytes
-  unsigned flag, agg_n, agg_last, inc_n, inc_last, pad[3];
+  unsigned flag, agg_n, agg_last, inc_n, inc_last;
+  unsigned lit_flag, lit, pad;  // K2: the epoch once lit, the tile's last literal, holds
 };
 
 struct Carry {       // (bit count, last min(count, 32) bits right-aligned)
@@ -485,12 +301,44 @@ pack_words_kernel(const uint32_t* __restrict__ v, const int* __restrict__ n,
   }
 }
 
+constexpr unsigned kAllLanes = 0xffffffffu;
+
+// The ticket of this block, thread 0 calls: its index when every row is one
+// tile; else the next from the counter, so that a tile never waits on one
+// that has not started, and the last block to take one resets the counters
+// for the next launch on the stream.
+__device__ __forceinline__ long long block_ticket(int tiles_per_row,
+                                                  unsigned long long* counters) {
+  if (tiles_per_row <= 1) return blockIdx.x;
+  const long long t = static_cast<long long>(atomicAdd(&counters[0], 1ULL));
+  __threadfence();
+  if (atomicAdd(&counters[1], 1ULL) == gridDim.x - 1ULL) {  // every ticket taken
+    counters[0] = 0ULL;
+    counters[1] = 0ULL;
+  }
+  return t;
+}
+
+// The lanes' pairs folded in lane (stream) order, returned to every lane.
+__device__ __forceinline__ Carry warp_fold(Carry c, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Carry o{__shfl_down_sync(kAllLanes, c.n, d), __shfl_down_sync(kAllLanes, c.last, d)};
+    if (lane + d < 32) c = combine(c, o);
+  }
+  return Carry{__shfl_sync(kAllLanes, c.n, 0), __shfl_sync(kAllLanes, c.last, 0)};
+}
+
 // K1: warps over tiles of a row.  Each (channel, row) is cut into tiles (the
 // row's width up to 4,096 symbols, narrower where a launch has too few rows
-// to fill the card: see dxt_encode_plain), one warp a tile and
+// to fill the card: see tile_launch), one warp a tile and
 // kPlainTileWarps tiles a block.
-// Each warp first unpacks its channel's LUT into a shared table of
-// value << 6 | escape << 5 | width per symbol.  It walks its tile in steps
+// Each warp first loads the row's length, its first step's symbols (up to
+// the tile's end in the row; the length masks them later) and its
+// channel's LUT at once, and unpacks the LUT into a shared table of
+// value << 6 | escape << 5 | width per symbol (fill_table: the loads of
+// this prologue, one after another, cost a wide share of a uniform row's
+// time).  It walks its tile in steps
 // of 32 x 8 symbols: each lane loads its 8 consecutive symbols (one
 // vector load where the row allows, single bytes elsewhere) and looks each
 // up once; a shuffle scan of the lanes' widths
@@ -508,14 +356,14 @@ pack_words_kernel(const uint32_t* __restrict__ v, const int* __restrict__ n,
 // last bit it holds; the row's last tile also stores the partial last word
 // and t, and the lane with the symbol len - 1 lg.  Tiles past the row's
 // length do nothing.  Tiles come from a ticket counter only when a row has
-// more than one; the tile states are K8's (the same scratch and epochs).
-// A block holds 4 tiles, and at least 10 blocks fit an SM (48 registers a
-// thread), so the uniform batch's ~5,000 tiles run in one wave.
+// more than one (block_ticket); the tile states are K8's (the same scratch
+// and epochs).  A block holds 4 tiles, and at least 10 blocks fit an SM (48
+// registers a thread), so the uniform batch's ~5,000 tiles run in one wave.
 constexpr int kPlainTileWarps = 4;                          // tiles per block
 constexpr int kPlainMinBlocks = 10;                         // blocks an SM holds, at least
 constexpr int kPlainTileMax = 4096;                         // symbols per tile, at most
 constexpr int kPlainTileMin = 512;                          // and at least
-constexpr long long kPlainMinTiles = 2048;                  // tiles a launch wants
+constexpr long long kPlainMinTiles = 1024;                  // tiles a launch wants
 constexpr int kPlainLaneSyms = 8;                           // symbols per lane and step
 constexpr int kPlainStep = 32 * kPlainLaneSyms;             // symbols per warp step
 constexpr int kPlainWinWords = kPlainStep * 24 / 32 + 2;    // <= 24 bits a symbol
@@ -547,20 +395,8 @@ encode_plain_kernel(const uint8_t* __restrict__ data, const int* __restrict__ le
   __shared__ uint32_t s_em[kPlainTileWarps][256];
   __shared__ uint32_t s_win[kPlainTileWarps][kPlainWinWords];
   __shared__ long long s_ticket;
-  constexpr unsigned kFull = 0xffffffffu;
 
-  if (threadIdx.x == 0) {
-    long long t = blockIdx.x;
-    if (tiles_per_row > 1) {  // a tile may wait on earlier ones: take them in order
-      t = static_cast<long long>(atomicAdd(&counters[0], 1ULL));
-      __threadfence();
-      if (atomicAdd(&counters[1], 1ULL) == gridDim.x - 1ULL) {  // every ticket taken
-        counters[0] = 0ULL;
-        counters[1] = 0ULL;
-      }
-    }
-    s_ticket = t;
-  }
+  if (threadIdx.x == 0) s_ticket = block_ticket(tiles_per_row, counters);
   __syncthreads();
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -569,17 +405,20 @@ encode_plain_kernel(const uint8_t* __restrict__ data, const int* __restrict__ le
   const long long r = tile / tiles_per_row;  // channel * n_rows + row
   const int k = static_cast<int>(tile - r * tiles_per_row);
   const int ch = static_cast<int>(r / n_rows);
-  const int len = clamp_len(lengths[r - static_cast<long long>(ch) * n_rows], width);
   const int lo = k * tile_syms;
+  // the row's length, the tile's first symbols (up to the tile's end in the
+  // row, masked by the length later) and the table load together
+  const int len_in = lengths[r - static_cast<long long>(ch) * n_rows];
+  const uint8_t* row = data + r * width;
+  const int lim = lo + tile_syms < width ? lo + tile_syms : static_cast<int>(width);
+  uint32_t next[2];  // the next step's symbols, loaded a step ahead
+  lane_syms(row, lo + kPlainLaneSyms * lane, lim, next);
+  uint32_t* em = s_em[warp];
+  fill_table(luts + ch * 256, em, lane, [](int pk, int i) { return sym_entry(pk, i); });
+  const int len = clamp_len(len_in, width);
   if (k > 0 && lo >= len) return;
   const int hi = lo + tile_syms < len ? lo + tile_syms : len;
   const bool last_tile = hi == len;
-  uint32_t* em = s_em[warp];
-  for (int i = lane; i < 256; i += 32) {  // value << 6 | escape << 5 | width
-    const Emission e = sym_emission(luts + ch * 256, i);
-    em[i] = e.v << 6 | (luts[ch * 256 + i] & 1) << 5 | static_cast<uint32_t>(e.n);
-  }
-  const uint8_t* row = data + r * width;
   __syncwarp();
 
   Carry excl{0u, 0u};
@@ -597,12 +436,7 @@ encode_plain_kernel(const uint8_t* __restrict__ data, const int* __restrict__ le
           const uint32_t e = em[(w[i >> 2] >> (8 * (i & 3))) & 0xFF];
           if (i0 + i < hi) sc = combine(sc, Carry{e & 31u, e >> 6});
         }
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const Carry o{__shfl_down_sync(kFull, sc.n, d), __shfl_down_sync(kFull, sc.last, d)};
-          if (lane + d < 32) sc = combine(sc, o);
-        }
-        a = combine(a, Carry{__shfl_sync(kFull, sc.n, 0), __shfl_sync(kFull, sc.last, 0)});
+        a = combine(a, warp_fold(sc, lane));
       }
       if (lane == 0) publish(st, k > 0 ? kAgg : kInc, a, epoch);
     }
@@ -618,8 +452,6 @@ encode_plain_kernel(const uint8_t* __restrict__ data, const int* __restrict__ le
   uint32_t* dst = words + r * mp;
   unsigned bit = excl.n;
   uint32_t carry = bit & 31 ? excl.last << (32 - (bit & 31)) : 0u;
-  uint32_t next[2];  // the next step's symbols, loaded a step ahead
-  lane_syms(row, lo + kPlainLaneSyms * lane, hi, next);
   for (int s0 = lo; s0 < hi; s0 += kPlainStep) {
     const int i0 = s0 + kPlainLaneSyms * lane;
     const int nv = static_cast<int>(hi - i0 < 0 ? 0 : (hi - i0 < kPlainLaneSyms ? hi - i0 : kPlainLaneSyms));
@@ -644,10 +476,10 @@ encode_plain_kernel(const uint8_t* __restrict__ data, const int* __restrict__ le
     int inc = tot;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      const int t = __shfl_up_sync(kFull, inc, d);
+      const int t = __shfl_up_sync(kAllLanes, inc, d);
       if (lane >= d) inc += t;
     }
-    const int step_bits = __shfl_sync(kFull, inc, 31);
+    const int step_bits = __shfl_sync(kAllLanes, inc, 31);
     const int o = static_cast<int>(bit & 31);
     const int n_win = (o + step_bits + 31) >> 5;
     for (int i = lane; i < n_win; i += 32) win[i] = i == 0 ? carry : 0u;
@@ -682,6 +514,526 @@ encode_plain_kernel(const uint8_t* __restrict__ data, const int* __restrict__ le
     if (bit & 31) dst[bit >> 5] = carry;
     t_out[r] = static_cast<int>(bit);
     if (len == 0) lg_out[r] = 0;
+  }
+}
+
+// K2: K1's warps over tiles of a row, for an RLE channel (delQV, subQV).
+// A literal is a symbol != rchar inside the row's length; it emits the code
+// of the run of rchar before it (the columns since the row's last literal
+// before it; min(run, 255) indexes the run table, and an escape appends
+// run & 0xFFFF, QV.c:468-487), then its own code (bitstream_jax.py:120-146).
+// The prologue is K1's.  A lane takes 16 symbols a step (one 16-byte load
+// where the row allows, loaded a step ahead) and finds its literals as a
+// bit mask by a SIMD byte compare; an exclusive warp max-scan of the lanes' last literal columns,
+// seeded with the one carried from the steps before (-1: none yet), gives
+// each lane the literal before its first symbol.  A lane then loops over
+// its literals only (a QV channel's literals are its minority: a quarter
+// of the symbols in the synthetic batches), once for the widths that the
+// shuffle scan takes and once to emit.  Each emission is at most 32 bits
+// (codes are <= 16 bits), so K1's 64-bit accumulator holds at most 31
+// pending bits and one emission, and a check after each emission flushes
+// at most one word.  Unlike K1's, a tile's bit count depends on the row's
+// last literal before the tile.  That column is a function of the input
+// alone: a tile that is not its row's last first finds its own last
+// literal (a walk back from its end, one step unless the tile ends in a
+// long run) and publishes it, and a later tile looks back over those for
+// the nearest tile that has one (look_back_lit).  That costs a tile state
+// per tile passed, where scanning the bytes back from the tile's start
+// would cost the whole of a long run (an all-rchar row of 70,000 symbols:
+// every tile the run so far).  Then the tiles fold, publish and look back
+// over (bit count, last <= 32 bits) as K1's do.  The row's last tile also
+// emits the trailing run after the row's last literal when it is not
+// empty, stores the partial last word and t, and lg: the trailing run's
+// last granule (16 after an escape, else its code length), else the last
+// literal's (8 after an escape, else its code length), 0 for an empty row.
+
+// Publish a tile's last literal column (-1: none), then its flag, the epoch.
+__device__ __forceinline__ void publish_lit(TileState* st, int lit, unsigned epoch) {
+  st->lit = static_cast<unsigned>(lit);
+  __threadfence();
+  store_release(&st->lit_flag, epoch);
+}
+
+// The row's last literal before tile k (-1: none), by the 32 lanes of a
+// warp, all of which return it: lane j reads tile k - 1 - (base + j); wait
+// until all have published, then take the nearest tile that has one.
+__device__ __forceinline__ int look_back_lit(const TileState* row, int k, unsigned epoch,
+                                             int lane) {
+  for (int base = 0; base < k; base += 32) {
+    const int j = k - 1 - base - lane;
+    const TileState* p = row + (j < 0 ? 0 : j);
+    for (;;) {
+      const unsigned f = j < 0 ? epoch : load_acquire(&p->lit_flag);
+      if (__all_sync(kAllLanes, f == epoch)) break;
+    }
+    const int lit = j < 0 ? -1 : static_cast<int>(__ldcg(&p->lit));
+    const unsigned has = __ballot_sync(kAllLanes, lit >= 0);
+    if (has) return __shfl_sync(kAllLanes, lit, __ffs(has) - 1);
+  }
+  return -1;
+}
+
+// The exclusive warp max-scan of the lanes' last literals mx, seeded with
+// prev (the last before the step): the last literal before the lane's
+// symbols; *step_last gets the last up to the step's end.
+__device__ __forceinline__ int lit_before(int mx, int prev, int lane, int* step_last) {
+  int m = mx;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(kAllLanes, m, d);
+    if (lane >= d && t > m) m = t;
+  }
+  const int last = __shfl_sync(kAllLanes, m, 31);
+  *step_last = last > prev ? last : prev;
+  int before = __shfl_up_sync(kAllLanes, m, 1);
+  if (lane == 0) before = -1;
+  return before > prev ? before : prev;
+}
+
+// K2's run table entry: code << 6 | escape << 5 | code length.  The run
+// code of `run` from the entry of min(run, 255): its value, and its width
+// in *n.
+__device__ __forceinline__ uint32_t run_code(uint32_t e, int run, int* n) {
+  const bool esc = e & 32u;
+  *n = static_cast<int>(e & 31u) + (esc ? 16 : 0);
+  return esc ? (e >> 6) << 16 | (static_cast<uint32_t>(run) & 0xFFFFu) : e >> 6;
+}
+
+constexpr int kWideLaneSyms = 16;                          // symbols per lane and step
+constexpr int kWideStep = 32 * kWideLaneSyms;              // symbols per warp step
+constexpr int kRunMinBlocks = 8;                           // blocks an SM holds, at least
+constexpr int kRunWinWords = kWideStep * 56 / 32 + 2;      // <= 56 bits a literal
+
+// A lane's 16 bytes from p[i0] on, four to a word, those from n on zero:
+// one 16-byte load where aligned and whole, single bytes else.
+__device__ __forceinline__ void lane_bytes16(const uint8_t* p, int i0, int n,
+                                             uint32_t (&w)[4]) {
+  if (i0 + kWideLaneSyms <= n && (reinterpret_cast<uintptr_t>(p + i0) & 15) == 0) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p + i0);
+    w[0] = x.x;
+    w[1] = x.y;
+    w[2] = x.z;
+    w[3] = x.w;
+    return;
+  }
+  w[0] = w[1] = w[2] = w[3] = 0u;
+#pragma unroll
+  for (int i = 0; i < kWideLaneSyms; ++i) {
+    if (i0 + i < n) w[i >> 2] |= static_cast<uint32_t>(p[i0 + i]) << (8 * (i & 3));
+  }
+}
+
+// The literals among a lane's 16 symbols from column i0 on (w: lane_bytes16)
+// as a bit mask, bit i for column i0 + i: a symbol != rchar below hi.
+__device__ __forceinline__ unsigned lit_mask(const uint32_t (&w)[4], int i0, int hi,
+                                             int rchar) {
+  unsigned m = 0xFFFFu;  // an rchar outside [0, 256) matches no symbol
+  if (rchar >= 0 && rchar < 256) {
+    const unsigned r4 = 0x01010101u * static_cast<unsigned>(rchar);
+    m = 0u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // one bit a byte that differs, gathered by a multiply
+      m |= ((__vsetne4(w[j], r4) * 0x01020408u) >> 24 & 0xFu) << (4 * j);
+    }
+  }
+  const int n = hi - i0;
+  return n >= kWideLaneSyms ? m : (n > 0 ? m & ((1u << n) - 1u) : 0u);
+}
+
+// The symbol at column i0 + i of a lane's 16 (w: lane_bytes16).
+__device__ __forceinline__ int sym_at(const uint32_t (&w)[4], int i) {
+  const uint32_t x = i < 8 ? (i < 4 ? w[0] : w[1]) : (i < 12 ? w[2] : w[3]);
+  return static_cast<int>((x >> (8 * (i & 3))) & 0xFFu);
+}
+
+// The last literal of a lane's mask from column i0 on, -1 if none.
+__device__ __forceinline__ int last_lit(unsigned m, int i0) {
+  return m ? i0 + 31 - __clz(m) : -1;
+}
+
+// A K2 literal at column col, after the literal at prev: its run code's
+// table entry er and its symbol's entry es (K1's table).
+struct LitCodes {
+  uint32_t er, es;
+  int run;
+};
+
+__device__ __forceinline__ LitCodes lit_codes(const uint32_t (&w)[4], int i, int col, int prev,
+                                              const uint32_t* sym_t, const uint32_t* run_t) {
+  const int run = col - prev - 1;
+  return {run_t[run < 255 ? run : 255], sym_t[sym_at(w, i)], run};
+}
+
+// The bits of a lane's literals (mask m from column i0 on, the literal
+// before them at prev).
+__device__ __forceinline__ int lane_bits(const uint32_t (&w)[4], unsigned m, int i0, int prev,
+                                         const uint32_t* sym_t, const uint32_t* run_t) {
+  int tot = 0;
+  for (; m; m &= m - 1) {
+    const int i = __ffs(m) - 1;
+    const LitCodes c = lit_codes(w, i, i0 + i, prev, sym_t, run_t);
+    int rn;
+    run_code(c.er, c.run, &rn);
+    tot += rn + static_cast<int>(c.es & 31u);
+    prev = i0 + i;
+  }
+  return tot;
+}
+
+__global__ void __launch_bounds__(32 * kPlainTileWarps, kRunMinBlocks)
+encode_run_kernel(const uint8_t* __restrict__ data, const int* __restrict__ lengths,
+                  const int* __restrict__ sym_luts, const int* __restrict__ run_luts,
+                  const int* __restrict__ rchars, uint32_t* __restrict__ words,
+                  int* __restrict__ t_out, int* __restrict__ lg_out, int n_rows,
+                  long long width, long long mp, int tile_syms, int tiles_per_row,
+                  long long n_tiles, unsigned epoch, TileState* __restrict__ states,
+                  unsigned long long* __restrict__ counters) {
+  __shared__ uint32_t s_sym[kPlainTileWarps][256];
+  __shared__ uint32_t s_run[kPlainTileWarps][256];
+  __shared__ uint32_t s_win[kPlainTileWarps][kRunWinWords];
+  __shared__ long long s_ticket;
+
+  if (threadIdx.x == 0) s_ticket = block_ticket(tiles_per_row, counters);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long tile = s_ticket * kPlainTileWarps + warp;
+  if (tile >= n_tiles) return;
+  const long long r = tile / tiles_per_row;  // channel * n_rows + row
+  const int k = static_cast<int>(tile - r * tiles_per_row);
+  const int ch = static_cast<int>(r / n_rows);
+  const int lo = k * tile_syms;
+  // as K1's: the length, the first step and the tables load together
+  const int len_in = lengths[r - static_cast<long long>(ch) * n_rows];
+  const int rchar = rchars[ch];
+  const uint8_t* row = data + r * width;
+  const int lim = lo + tile_syms < width ? lo + tile_syms : static_cast<int>(width);
+  uint32_t first[4];  // the tile's first step, for both passes
+  lane_bytes16(row, lo + kWideLaneSyms * lane, lim, first);
+  uint32_t* sym_t = s_sym[warp];
+  uint32_t* run_t = s_run[warp];
+  fill_table(sym_luts + ch * 256, sym_t, lane, [](int pk, int i) { return sym_entry(pk, i); });
+  fill_table(run_luts + ch * 256, run_t, lane, [](int pk, int) {
+    return (static_cast<uint32_t>(pk) >> 6) << 6 | (pk & 1) << 5 | ((pk >> 1) & 31);
+  });
+  const int len = clamp_len(len_in, width);
+  if (k > 0 && lo >= len) return;
+  const int hi = lo + tile_syms < len ? lo + tile_syms : len;
+  const bool last_tile = hi == len;
+  __syncwarp();
+
+  Carry excl{0u, 0u};
+  int excl_lit = -1;  // the row's last literal before the tile
+  if (!last_tile || k > 0) {
+    TileState* st = states + tile;
+    if (!last_tile) {  // the tile's last literal, walking back from its end
+      int tl = -1;
+      for (int s0 = lo + (hi - lo - 1) / kWideStep * kWideStep; s0 >= lo && tl < 0;
+           s0 -= kWideStep) {
+        const int i0 = s0 + kWideLaneSyms * lane;
+        uint32_t w[4];
+        lane_bytes16(row, i0, hi, w);
+        tl = __reduce_max_sync(kAllLanes, last_lit(lit_mask(w, i0, hi, rchar), i0));
+      }
+      if (lane == 0) publish_lit(st, tl, epoch);
+    }
+    if (k > 0) excl_lit = look_back_lit(states + (tile - k), k, epoch, lane);
+    Carry a{0u, 0u};
+    if (!last_tile) {  // the tile's (bit count, last <= 32 bits)
+      int prev = excl_lit;
+      uint32_t next[4] = {first[0], first[1], first[2], first[3]};
+      for (int s0 = lo; s0 < hi; s0 += kWideStep) {
+        const int i0 = s0 + kWideLaneSyms * lane;
+        const uint32_t w[4] = {next[0], next[1], next[2], next[3]};
+        if (s0 + kWideStep < hi) lane_bytes16(row, i0 + kWideStep, hi, next);
+        const unsigned m = lit_mask(w, i0, hi, rchar);
+        int step_last;
+        int p = lit_before(last_lit(m, i0), prev, lane, &step_last);
+        Carry sc{0u, 0u};
+        for (unsigned mm = m; mm; mm &= mm - 1) {
+          const int i = __ffs(mm) - 1;
+          const LitCodes c = lit_codes(w, i, i0 + i, p, sym_t, run_t);
+          int rn;
+          const uint32_t rv = run_code(c.er, c.run, &rn);
+          sc = combine(sc, Carry{static_cast<unsigned>(rn), rv});
+          sc = combine(sc, Carry{c.es & 31u, c.es >> 6});
+          p = i0 + i;
+        }
+        a = combine(a, warp_fold(sc, lane));
+        prev = step_last;
+      }
+      if (lane == 0) publish(st, k > 0 ? kAgg : kInc, a, epoch);
+    }
+    if (k > 0) {
+      excl = look_back(states + (tile - k), k, epoch, lane);
+      if (!last_tile && lane == 0) publish(st, kInc, combine(excl, a), epoch);
+    }
+  }
+
+  // the tile's bits, a warp step at a time, as K1's
+  uint32_t* win = s_win[warp];
+  uint32_t* dst = words + r * mp;
+  unsigned bit = excl.n;
+  uint32_t carry = bit & 31 ? excl.last << (32 - (bit & 31)) : 0u;
+  int prev = excl_lit;
+  uint32_t next[4] = {first[0], first[1], first[2], first[3]};  // loaded a step ahead
+  for (int s0 = lo; s0 < hi; s0 += kWideStep) {
+    const int i0 = s0 + kWideLaneSyms * lane;
+    const uint32_t w[4] = {next[0], next[1], next[2], next[3]};
+    if (s0 + kWideStep < hi) lane_bytes16(row, i0 + kWideStep, hi, next);
+    const unsigned m = lit_mask(w, i0, hi, rchar);
+    int step_last;
+    const int p = lit_before(last_lit(m, i0), prev, lane, &step_last);
+    const int tot = lane_bits(w, m, i0, p, sym_t, run_t);
+    int inc = tot;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(kAllLanes, inc, d);
+      if (lane >= d) inc += t;
+    }
+    const int step_bits = __shfl_sync(kAllLanes, inc, 31);
+    const int o = static_cast<int>(bit & 31);
+    const int n_win = (o + step_bits + 31) >> 5;
+    for (int i = lane; i < n_win; i += 32) win[i] = i == 0 ? carry : 0u;
+    __syncwarp();
+    {
+      // K1's accumulator: the first b & 31 bits zeros for the lanes before
+      const int b = o + inc - tot;
+      int wi = b >> 5, ab = b & 31;
+      unsigned long long acc = 0ull;
+      int q = p;
+      for (unsigned mm = m; mm; mm &= mm - 1) {
+        const int i = __ffs(mm) - 1;
+        const LitCodes c = lit_codes(w, i, i0 + i, q, sym_t, run_t);
+        int rn;
+        const uint32_t rv = run_code(c.er, c.run, &rn);
+        acc = (acc << rn) | rv;
+        ab += rn;
+        if (ab >= 32) {
+          ab -= 32;
+          atomicOr(&win[wi], static_cast<uint32_t>(acc >> ab));
+          ++wi;
+        }
+        const int sn = static_cast<int>(c.es & 31u);
+        acc = (acc << sn) | (c.es >> 6);
+        ab += sn;
+        if (ab >= 32) {
+          ab -= 32;
+          atomicOr(&win[wi], static_cast<uint32_t>(acc >> ab));
+          ++wi;
+        }
+        q = i0 + i;
+      }
+      if (ab) atomicOr(&win[wi], static_cast<uint32_t>(acc << (32 - ab)));
+    }
+    __syncwarp();
+    const int full = (o + step_bits) >> 5;
+    uint32_t* d = dst + (bit >> 5);
+    for (int i = lane; i < full; i += 32) d[i] = win[i];
+    carry = full < n_win ? win[full] : 0u;
+    __syncwarp();
+    bit += step_bits;
+    prev = step_last;
+  }
+  if (last_tile && lane == 0) {
+    const int trail = len - prev - 1;  // the run after the row's last literal
+    int tn = 0, lg = 0;
+    uint32_t tv = 0u;
+    if (trail > 0) {
+      const uint32_t e = run_t[trail < 255 ? trail : 255];
+      tv = run_code(e, trail, &tn);
+      lg = e & 32u ? 16 : static_cast<int>(e & 31u);
+    } else if (len > 0) {  // the row ends in a literal
+      const uint32_t e = sym_t[row[len - 1]];
+      lg = e & 32u ? 8 : static_cast<int>(e & 31u);
+    }
+    const int o = static_cast<int>(bit & 31);
+    const unsigned long long x = static_cast<unsigned long long>(carry) << 32 |
+                                 (tn ? static_cast<unsigned long long>(tv) << (64 - o - tn) : 0ull);
+    uint32_t* d = dst + (bit >> 5);
+    if (o + tn > 0) d[0] = static_cast<uint32_t>(x >> 32);
+    if (o + tn > 32) d[1] = static_cast<uint32_t>(x);
+    t_out[r] = static_cast<int>(bit) + tn;
+    lg_out[r] = lg;
+  }
+}
+
+// K3: K1's warps over tiles of a row, for the delTag's bases (Pack_Tag +
+// Number_Read + Compress_Read, QV.c:810-819).  A tag is kept where its delQV
+// byte != del_char (every tag inside the row's length when del_char < 0); its
+// 2-bit code number_lut[tag] goes to the row's packed bytes at rank >> 2, the
+// first code of a byte in bits 7-6 (DB.c:334), rank its index among the row's
+// kept tags.  The prologue is K1's.  A lane takes 16 (tag, delQV) pairs a step
+// (two 16-byte loads where the row allows, loaded a step ahead); its kept
+// codes form one <= 32-bit value; a shuffle scan of the lanes' counts gives
+// each lane its rank, and the lane ORs its bits into a per-warp window of
+// big-endian words at bit 2 * rank, touching at most two words.  A finished
+// word is four packed bytes: one byte-swapped 32-bit store where the row
+// starts 4-byte aligned, four byte stores where it does not (a width that is
+// no multiple of 4).  The tiles chain by K8's look-back over (2 * kept, last
+// <= 32 bits), which depends on the tile alone.  The row's last tile also
+// stores the partial last word's bytes, clens and the zeros up to wbytes
+// (16-byte stores where aligned).
+constexpr int kTagWinWords = kWideStep * 2 / 32 + 2;       // 2 bits a tag
+
+// A lane's 16 tags and delQV bytes from column i0 on (lane_bytes16).
+struct TagBytes {
+  uint32_t t[4], d[4];
+};
+
+__device__ __forceinline__ void load_tags(const uint8_t* tg, const uint8_t* dl, int i0, int n,
+                                          TagBytes* b) {
+  lane_bytes16(tg, i0, n, b->t);
+  lane_bytes16(dl, i0, n, b->d);
+}
+
+// The kept tags among a lane's 16 from column i0 on, below n: their codes
+// right-aligned in column order, and their count in *cnt.
+__device__ __forceinline__ uint32_t lane_tags(const TagBytes& b, const uint32_t* lut,
+                                              int del_char, int i0, int n, int* cnt) {
+  uint32_t v = 0u;
+  int c = 0;
+#pragma unroll
+  for (int i = 0; i < kWideLaneSyms; ++i) {
+    const int dv = (b.d[i >> 2] >> (8 * (i & 3))) & 0xFF;
+    const bool keep = i0 + i < n && (del_char < 0 || dv != del_char);
+    const uint32_t code = lut[(b.t[i >> 2] >> (8 * (i & 3))) & 0xFF];
+    v = keep ? (v << 2) | code : v;
+    c += keep;
+  }
+  *cnt = c;
+  return v;
+}
+
+// Bytes [b0, end) of a row: the big-endian word `word`'s bytes, then zeros.
+__device__ __forceinline__ void store_tail(uint8_t* dst, long long b0, long long end,
+                                           uint32_t word, int lane) {
+  if (lane < 4 && b0 + lane < end) dst[b0 + lane] = static_cast<uint8_t>(word >> (24 - 8 * lane));
+  const long long z0 = b0 + 4;
+  if (z0 >= end) return;
+  uint8_t* p = dst + z0;
+  const long long n = end - z0;
+  long long head = (16 - static_cast<long long>(reinterpret_cast<uintptr_t>(p) & 15)) & 15;
+  if (head > n) head = n;
+  if (lane < head) p[lane] = 0;
+  uint4* q = reinterpret_cast<uint4*>(p + head);
+  const long long nq = (n - head) >> 4;
+  for (long long i = lane; i < nq; i += 32) q[i] = make_uint4(0u, 0u, 0u, 0u);
+  const long long done = head + (nq << 4);
+  if (lane < n - done) p[done + lane] = 0;
+}
+
+__global__ void __launch_bounds__(32 * kPlainTileWarps, kPlainMinBlocks)
+pack_tags_kernel(const uint8_t* __restrict__ tags, const uint8_t* __restrict__ dels,
+                 const int* __restrict__ lengths, const int* __restrict__ del_char_p,
+                 const uint8_t* __restrict__ number_lut, uint8_t* __restrict__ packed,
+                 int* __restrict__ clens, long long width, long long wbytes, int tile_syms,
+                 int tiles_per_row, long long n_tiles, unsigned epoch,
+                 TileState* __restrict__ states, unsigned long long* __restrict__ counters) {
+  __shared__ uint32_t s_lut[kPlainTileWarps][256];
+  __shared__ uint32_t s_win[kPlainTileWarps][kTagWinWords];
+  __shared__ long long s_ticket;
+
+  if (threadIdx.x == 0) s_ticket = block_ticket(tiles_per_row, counters);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long tile = s_ticket * kPlainTileWarps + warp;
+  if (tile >= n_tiles) return;
+  const long long row = tile / tiles_per_row;
+  const int k = static_cast<int>(tile - row * tiles_per_row);
+  const int lo = k * tile_syms;
+  // as K1's: the length, the first step and the table load together
+  const int len_in = lengths[row];
+  const int del_char = *del_char_p;
+  const uint8_t* tg = tags + row * width;
+  const uint8_t* dl = dels + row * width;
+  const int lim = lo + tile_syms < width ? lo + tile_syms : static_cast<int>(width);
+  TagBytes first;  // the tile's first step, for both passes
+  load_tags(tg, dl, lo + kWideLaneSyms * lane, lim, &first);
+  uint32_t* lut = s_lut[warp];
+  fill_table(number_lut, lut, lane, [](uint8_t c, int) { return c & 3u; });
+  const int len = clamp_len(len_in, width);
+  if (k > 0 && lo >= len) return;
+  const int hi = lo + tile_syms < len ? lo + tile_syms : len;
+  const bool last_tile = hi == len;
+  __syncwarp();
+
+  Carry excl{0u, 0u};
+  if (!last_tile || k > 0) {
+    TileState* st = states + tile;
+    Carry a{0u, 0u};
+    if (!last_tile) {  // the tile's (2 * kept, last <= 32 bits)
+      TagBytes next = first;
+      for (int s0 = lo; s0 < hi; s0 += kWideStep) {
+        const int i0 = s0 + kWideLaneSyms * lane;
+        const TagBytes b = next;
+        if (s0 + kWideStep < hi) load_tags(tg, dl, i0 + kWideStep, hi, &next);
+        int cnt;
+        const uint32_t v = lane_tags(b, lut, del_char, i0, hi, &cnt);
+        a = combine(a, warp_fold(Carry{2u * cnt, v}, lane));
+      }
+      if (lane == 0) publish(st, k > 0 ? kAgg : kInc, a, epoch);
+    }
+    if (k > 0) {
+      excl = look_back(states + (tile - k), k, epoch, lane);
+      if (!last_tile && lane == 0) publish(st, kInc, combine(excl, a), epoch);
+    }
+  }
+
+  // the tile's bits, a warp step at a time: the window holds the row's
+  // big-endian words from word bit >> 5 on, word 0 with the bits carried
+  uint32_t* win = s_win[warp];
+  uint8_t* dst = packed + row * wbytes;
+  const bool aligned = (reinterpret_cast<uintptr_t>(dst) & 3) == 0;
+  unsigned bit = excl.n;
+  uint32_t carry = bit & 31 ? excl.last << (32 - (bit & 31)) : 0u;
+  TagBytes next = first;  // the next step's bytes, loaded a step ahead
+  for (int s0 = lo; s0 < hi; s0 += kWideStep) {
+    const int i0 = s0 + kWideLaneSyms * lane;
+    const TagBytes b = next;
+    if (s0 + kWideStep < hi) load_tags(tg, dl, i0 + kWideStep, hi, &next);
+    int cnt;
+    const uint32_t v = lane_tags(b, lut, del_char, i0, hi, &cnt);
+    int inc = cnt;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(kAllLanes, inc, d);
+      if (lane >= d) inc += t;
+    }
+    const int step_bits = 2 * __shfl_sync(kAllLanes, inc, 31);
+    const int o = static_cast<int>(bit & 31);
+    const int n_win = (o + step_bits + 31) >> 5;
+    for (int i = lane; i < n_win; i += 32) win[i] = i == 0 ? carry : 0u;
+    __syncwarp();
+    if (cnt) {
+      const int p = o + 2 * (inc - cnt);
+      const uint32_t lv = v << (32 - 2 * cnt);  // the lane's bits, left-aligned
+      atomicOr(&win[p >> 5], lv >> (p & 31));
+      if ((p & 31) + 2 * cnt > 32) atomicOr(&win[(p >> 5) + 1], lv << (32 - (p & 31)));
+    }
+    __syncwarp();
+    const int full = (o + step_bits) >> 5;
+    const long long w0 = bit >> 5;
+    for (int i = lane; i < full; i += 32) {
+      const uint32_t x = win[i];
+      if (aligned) {
+        reinterpret_cast<uint32_t*>(dst)[w0 + i] = __byte_perm(x, 0u, 0x0123);
+      } else {
+        uint8_t* q = dst + 4 * (w0 + i);
+        q[0] = static_cast<uint8_t>(x >> 24);
+        q[1] = static_cast<uint8_t>(x >> 16);
+        q[2] = static_cast<uint8_t>(x >> 8);
+        q[3] = static_cast<uint8_t>(x);
+      }
+    }
+    carry = full < n_win ? win[full] : 0u;
+    __syncwarp();
+    bit += step_bits;
+  }
+  if (last_tile) {
+    if (lane == 0) clens[row] = static_cast<int>(bit >> 1);
+    store_tail(dst, 4LL * (bit >> 5), wbytes, bit & 31 ? carry : 0u, lane);
   }
 }
 
@@ -739,24 +1091,18 @@ int launch_lut_gather(const T* data, const int* lut, int* out, long long count,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+// The tiles of a launch of K1, K2 or K3 over `rows` rows of `width`
+// symbols walked in warp steps of `step`: the tile is the row's width in
+// whole steps, at most kPlainTileMax symbols, halved (to whole steps,
+// kPlainTileMin at least) while the launch has fewer than kPlainMinTiles
+// tiles; a row of one tile takes no ticket and no look-back, and a bucket
+// of few wide rows is cut finer.  Blocks of kPlainTileWarps tiles.
+struct TileLaunch {
+  long long tile, per_row, tiles, blocks;
+};
 
-// Plain C entry points, loaded with ctypes (ops/_build.py).  Each launches on
-// the given stream, never synchronises, and returns cudaGetLastError().
-
-// scratch and epoch: as dxt_pack_words' (K8 and K1 share them), with
-// channels * n_rows * max(1, ceil(width / 512)) tile states.  The tile is
-// the row's width in whole warp steps, at most 4,096 symbols, halved (to
-// whole steps, 512 symbols at least) while the launch has fewer than
-// kPlainMinTiles tiles: the uniform batch's rows are one tile each, with no
-// ticket and no look-back, and a bucket of few wide rows is cut finer.
-extern "C" int dxt_encode_plain(const void* data, const void* lengths, const void* luts,
-                                void* words, void* t, void* lg, int channels, int n_rows,
-                                long long width, long long mp, void* scratch, unsigned epoch,
-                                void* stream) {
-  if (channels <= 0 || n_rows <= 0) return 0;
-  const long long rows = static_cast<long long>(channels) * n_rows;
-  auto steps = [](long long n) { return (n + kPlainStep - 1) / kPlainStep * kPlainStep; };
+TileLaunch tile_launch(long long rows, long long width, long long step) {
+  auto steps = [step](long long n) { return (n + step - 1) / step * step; };
   long long tile = steps(width > 0 ? width : 1);
   if (tile > kPlainTileMax) tile = kPlainTileMax;
   auto per_row = [&](long long ts) { return width > 0 ? (width + ts - 1) / ts : 1LL; };
@@ -764,19 +1110,38 @@ extern "C" int dxt_encode_plain(const void* data, const void* lengths, const voi
     const long long half = steps(tile / 2);
     tile = half < kPlainTileMin ? kPlainTileMin : half;
   }
-  const long long tpr = per_row(tile);
-  const long long tiles = rows * tpr;
-  const long long blocks = (tiles + kPlainTileWarps - 1) / kPlainTileWarps;
-  if (blocks > 0x7fffffffLL || epoch == 0 || epoch >= (1u << 30)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const long long tiles = rows * per_row(tile);
+  return {tile, per_row(tile), tiles, (tiles + kPlainTileWarps - 1) / kPlainTileWarps};
+}
+
+bool launch_ok(const TileLaunch& t, unsigned epoch) {
+  return t.blocks <= 0x7fffffffLL && epoch != 0 && epoch < (1u << 30);
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes (ops/_build.py).  Each launches on
+// the given stream, never synchronises, and returns cudaGetLastError().
+//
+// K1, K2 and K3 take scratch and epoch as dxt_pack_words does (K1-K3 and K8
+// share them), with rows * max(1, ceil(width / 512)) tile states, rows the
+// launch's (channel, row) pairs: enough for any tile of at least
+// kPlainTileMin symbols (tile_launch).
+
+extern "C" int dxt_encode_plain(const void* data, const void* lengths, const void* luts,
+                                void* words, void* t, void* lg, int channels, int n_rows,
+                                long long width, long long mp, void* scratch, unsigned epoch,
+                                void* stream) {
+  if (channels <= 0 || n_rows <= 0) return 0;
+  const TileLaunch tl = tile_launch(static_cast<long long>(channels) * n_rows, width, kPlainStep);
+  if (!launch_ok(tl, epoch)) return static_cast<int>(cudaErrorInvalidValue);
   auto* counters = static_cast<unsigned long long*>(scratch);
-  encode_plain_kernel<<<static_cast<unsigned>(blocks), 32 * kPlainTileWarps, 0,
+  encode_plain_kernel<<<static_cast<unsigned>(tl.blocks), 32 * kPlainTileWarps, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(data), static_cast<const int*>(lengths),
       static_cast<const int*>(luts), static_cast<uint32_t*>(words), static_cast<int*>(t),
-      static_cast<int*>(lg), n_rows, width, mp, static_cast<int>(tile), static_cast<int>(tpr),
-      tiles, epoch,
+      static_cast<int*>(lg), n_rows, width, mp, static_cast<int>(tl.tile),
+      static_cast<int>(tl.per_row), tl.tiles, epoch,
       reinterpret_cast<TileState*>(counters + 2), counters);
   return static_cast<int>(cudaGetLastError());
 }
@@ -784,28 +1149,39 @@ extern "C" int dxt_encode_plain(const void* data, const void* lengths, const voi
 extern "C" int dxt_encode_run(const void* data, const void* lengths, const void* sym_luts,
                               const void* run_luts, const void* rchars, void* words, void* t,
                               void* lg, int channels, int n_rows, long long width,
-                              long long mp, void* stream) {
+                              long long mp, void* scratch, unsigned epoch, void* stream) {
   if (channels <= 0 || n_rows <= 0) return 0;
-  const dim3 grid(static_cast<unsigned>(n_rows), static_cast<unsigned>(channels));
-  encode_run_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const TileLaunch tl = tile_launch(static_cast<long long>(channels) * n_rows, width, kWideStep);
+  if (!launch_ok(tl, epoch)) return static_cast<int>(cudaErrorInvalidValue);
+  auto* counters = static_cast<unsigned long long*>(scratch);
+  encode_run_kernel<<<static_cast<unsigned>(tl.blocks), 32 * kPlainTileWarps, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(data), static_cast<const int*>(lengths),
       static_cast<const int*>(sym_luts), static_cast<const int*>(run_luts),
       static_cast<const int*>(rchars), static_cast<uint32_t*>(words), static_cast<int*>(t),
-      static_cast<int*>(lg), n_rows, width, mp);
+      static_cast<int*>(lg), n_rows, width, mp, static_cast<int>(tl.tile),
+      static_cast<int>(tl.per_row), tl.tiles, epoch,
+      reinterpret_cast<TileState*>(counters + 2), counters);
   return static_cast<int>(cudaGetLastError());
 }
 
+// del_char: a device int (-1: keep every tag); packed: (n_rows, wbytes) bytes.
 extern "C" int dxt_pack_tags(const void* tags, const void* dels, const void* lengths,
                              const void* del_char, const void* number_lut, void* packed,
                              void* clens, int n_rows, long long width, long long wbytes,
-                             void* stream) {
+                             void* scratch, unsigned epoch, void* stream) {
   if (n_rows <= 0) return 0;
-  pack_tags_kernel<<<static_cast<unsigned>(n_rows), kThreads, 0,
+  const TileLaunch tl = tile_launch(n_rows, width, kWideStep);
+  if (!launch_ok(tl, epoch)) return static_cast<int>(cudaErrorInvalidValue);
+  auto* counters = static_cast<unsigned long long*>(scratch);
+  pack_tags_kernel<<<static_cast<unsigned>(tl.blocks), 32 * kPlainTileWarps, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(tags), static_cast<const uint8_t*>(dels),
       static_cast<const int*>(lengths), static_cast<const int*>(del_char),
       static_cast<const uint8_t*>(number_lut), static_cast<uint8_t*>(packed),
-      static_cast<int*>(clens), width, wbytes);
+      static_cast<int*>(clens), width, wbytes, static_cast<int>(tl.tile),
+      static_cast<int>(tl.per_row), tl.tiles, epoch,
+      reinterpret_cast<TileState*>(counters + 2), counters);
   return static_cast<int>(cudaGetLastError());
 }
 

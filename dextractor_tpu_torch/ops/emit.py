@@ -19,9 +19,8 @@ from ..utils import dispatch
 from . import bitstream_torch as bt
 
 _MAX_WIDTH = 1 << 30    # the kernels index columns with 32-bit ints
-_MAX_CHANNELS = 65535   # channels are the grid's y dimension
-PLAIN_TILE_MIN = 512    # symbols per K1 tile, at least (kPlainTileMin in emit.cu)
-_EPOCHS = 1 << 30       # K1's and K8's epochs are 30 bits
+TILE_MIN = 512          # symbols per K1-K3 tile, at least (kPlainTileMin in emit.cu)
+_EPOCHS = 1 << 30       # the epochs of K1-K3 and K8 are 30 bits
 _TILE_SCRATCH = {}      # (device, stream) -> [tile states, last epoch]
 
 
@@ -74,7 +73,7 @@ def _launch(name, fn, *args):
 
 
 def tile_scratch(dev, n_tiles: int):
-    """The tile-state scratch of K1 and K8 on the current stream of ``dev``
+    """The tile-state scratch of K1-K3 and K8 on the current stream of ``dev``
     (two u64 counters and a 32-byte state per tile), zeroed once when
     allocated, and the next launch's epoch.  The tile states carry the
     epoch of the launch that wrote them, so no launch has to clear them; a
@@ -89,13 +88,21 @@ def tile_scratch(dev, n_tiles: int):
     return ent[0], ent[1]
 
 
+def _row_tiles(dev, rows: int, l: int):
+    """``tile_scratch`` for a launch of K1-K3 over ``rows`` rows of ``l``
+    symbols: room for its tiles at the narrowest."""
+    n_tiles = rows * max(1, -(-l // TILE_MIN))
+    if -(-n_tiles // 4) >= 1 << 31:
+        raise ValueError(f"{n_tiles} tiles: the kernels take fewer than 2^33")
+    return tile_scratch(dev, n_tiles)
+
+
 def _check_rows(data, lengths):
     if not isinstance(data, torch.Tensor) or data.dim() != 3:
         raise ValueError("data: expected a (C, N, L) tensor")
     c, n, l = data.shape
-    if l >= _MAX_WIDTH or c > _MAX_CHANNELS:
-        raise ValueError(f"{c} channels of width {l}: the kernels take at most "
-                         f"{_MAX_CHANNELS} channels narrower than {_MAX_WIDTH}")
+    if l >= _MAX_WIDTH:
+        raise ValueError(f"row width {l} exceeds {_MAX_WIDTH}")
     _check("data", data, torch.uint8, (c, n, l), data.device)
     _check("lengths", lengths, torch.int32, (n,), data.device)
     return c, n, l
@@ -116,10 +123,7 @@ def encode_plain(data, lengths, sym_luts):
     t = torch.empty((c, n), dtype=torch.int32, device=data.device)
     lg = torch.empty((c, n), dtype=torch.int32, device=data.device)
     if c and n:
-        n_tiles = c * n * max(1, -(-l // PLAIN_TILE_MIN))
-        if -(-n_tiles // 4) >= 1 << 31:
-            raise ValueError(f"{n_tiles} tiles: the kernel takes fewer than 2^33")
-        scratch, epoch = tile_scratch(data.device, n_tiles)
+        scratch, epoch = _row_tiles(data.device, c * n, l)
         _launch("encode_plain", dispatch.kernels().dxt_encode_plain,
                 data, lengths, sym_luts, words, t, lg, c, n, l, mp, scratch, epoch)
     return words, t, lg
@@ -142,9 +146,10 @@ def encode_run(data, lengths, sym_luts, run_luts, rchars):
     t = torch.empty((c, n), dtype=torch.int32, device=data.device)
     lg = torch.empty((c, n), dtype=torch.int32, device=data.device)
     if c and n:
+        scratch, epoch = _row_tiles(data.device, c * n, l)
         _launch("encode_run", dispatch.kernels().dxt_encode_run,
                 data, lengths, sym_luts, run_luts, rchars, words, t, lg,
-                c, n, l, mp)
+                c, n, l, mp, scratch, epoch)
     return words, t, lg
 
 
@@ -152,7 +157,8 @@ def pack_tags(tag_rows, del_rows, lengths, del_char, number_lut):
     """K3, Pack_Tag + Number_Read + Compress_Read (QV.c:810-819).
 
     tag_rows/del_rows (N, L) u8, lengths (N,) i32, del_char (1,) i32
-    (-1: keep every tag), number_lut (256,) u8
+    (-1: keep every tag), number_lut (256,) u8 2-bit codes (entries in
+    [0, 4))
     -> packed (N, ceil(L/4)) u8, zero past each row's (clens+3)//4 bytes,
     and clens (N,) i32, the kept-tag counts.
     """
@@ -175,7 +181,8 @@ def pack_tags(tag_rows, del_rows, lengths, del_char, number_lut):
     packed = torch.empty((n, wb), dtype=torch.uint8, device=dev)
     clens = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
+        scratch, epoch = _row_tiles(dev, n, l)
         _launch("pack_tags", dispatch.kernels().dxt_pack_tags,
                 tag_rows, del_rows, lengths, del_char, number_lut, packed,
-                clens, n, l, wb)
+                clens, n, l, wb, scratch, epoch)
     return packed, clens

@@ -12,10 +12,11 @@ conftest imports it) and give the same bytes for the same generator state;
 the widest bucket of the device encode, ``decode_batch`` those of
 ``ops.decode2.decode_entry_batch2`` for a .dexqv image the way
 ``bench.py::_qv_dec_setup`` does; ``plain_rows`` takes K1's inputs from an
-encode batch, ``widest_fused_bucket`` finds the widest bucket K1 takes.
-``decode_edge_cases`` builds edge rows of
-the decode kernels with the port's own encode twins, ``tag_edge_cases``
-edge inputs of K10.
+encode batch and ``run_rows`` K2's, ``widest_fused_bucket`` finds the
+widest bucket K1 and K2 take.
+``encode_edge_rows`` and ``run_edge_rows`` build edge rows of the encode
+kernels, ``decode_edge_cases`` edge rows of the decode kernels with the
+port's own encode twins, ``tag_edge_cases`` edge inputs of K10.
 
 No weights or parameters are carried over from the JAX package: the
 ``.dexqv`` tables are built from each file's data (tests convert the JAX
@@ -227,6 +228,19 @@ def plain_rows(batch):
     plane = (0, 2, 3, 4)
     return (np.ascontiguousarray(streams[[plane[c] for c in plain_cs]]), lengths,
             np.ascontiguousarray(sym[plain_cs]))
+
+
+def run_rows(batch):
+    """K2's arguments for the RLE QV channels of an encode-step batch (as
+    ``plain_rows``): (data (C, N, L) u8, lengths (N,) i32, symbol LUTs (C,
+    256) i32, run LUTs (C, 256) i32, rchars (C,) i32), NumPy; C is 0 when
+    the batch has no RLE channel."""
+    (streams, lengths, sym, run, rchars, _), run_on = batch
+    run_cs = [c for c, on in ((0, run_on[0]), (3, run_on[1])) if on]
+    plane = (0, 2, 3, 4)
+    return (np.ascontiguousarray(streams[[plane[c] for c in run_cs]]), lengths,
+            np.ascontiguousarray(sym[run_cs]), np.ascontiguousarray(run[run_cs]),
+            np.ascontiguousarray(rchars[run_cs]))
 
 
 def decode_batch(dexqv: bytes):
@@ -557,6 +571,103 @@ def encode_edge_rows(width: int = 9000):
              luts(["zero_bit"])),
             (f"width {w - 5} (byte loads)", ragged.astype(np.uint8),
              np.minimum(lengths, w - 5).astype(np.int32), luts(["lmax16"]))]
+
+
+EDGE_RCHAR = 102   # 'f': the run character (delChar) of run_edge_rows
+
+
+def _run_lits(rng, w: int):
+    """The literal layout of run_edge_rows at width ``w`` (>= 1,200):
+    (literal mask (14, w), lengths (14,) i32)."""
+    n = 14
+    lit = np.zeros((n, w), bool)
+    dense = rng.random((n, w)) < 0.7
+    lengths = np.full(n, w, np.int32)
+    lengths[:5] = [0, 1, 31, 32, 33]
+    lit[[0, 2, 3, 4]] = dense[[0, 2, 3, 4]]
+    lit[1, 0] = True
+    # row 5: no literal, a trailing run of w
+    lit[6, 0] = True                          # a literal only at column 0
+    lengths[7] = w - 3
+    lit[7, w - 4] = True                      # a literal only at len - 1
+    col, run = 7, 255                         # runs of 255 and 256 in turn
+    while col < w:
+        lit[8, col] = True
+        col, run = col + run + 1, 511 - run
+    lit[9] = dense[9]                         # a run across the tile boundary at
+    lit[9, 490:530] = False                   # 512, one across several
+    lit[9, 600:min(w - 50, 600 + max(550, w // 3))] = False
+    lit[10] = True                            # every symbol a literal
+    lengths[11] = w - 1
+    lit[11] = rng.random(w) < 0.3
+    lit[12] = rng.random(w) < 0.01
+    lengths[13] = w // 2 + 5
+    lit[13] = dense[13]
+    return lit, lengths
+
+
+def _long_lits(rng, w: int):
+    """Rows of ``w`` (>= 66,000) symbols with runs of 65,535 and 65,536,
+    trailing runs of w - 1 and w, and a run of most of the row before dense
+    literals: (literal mask (6, w), lengths (6,) i32)."""
+    lit = np.zeros((6, w), bool)
+    lit[0, [0, 65_536]] = True
+    lit[1, [0, 65_537]] = True
+    lit[2, 0] = True
+    # row 3: no literal
+    lit[4, 3] = True
+    lit[4, w - 1000:] = rng.random(1000) < 0.7
+    lit[5] = rng.random(w) < 0.7
+    return lit, np.full(6, w, np.int32)
+
+
+def run_edge_rows(width: int = 9000, long_len: int = 0):
+    """Edge inputs of K2 (ops/emit.encode_run) and K3 (ops/emit.pack_tags),
+    NumPy: (label, data (C, N, L) u8, lengths (N,) i32, symbol LUTs (C, 256)
+    i32, run LUTs (C, 256) i32, rchars (C,) i32, tags (N, L) u8).  K3 takes
+    the tags with data[0] as the delQV rows and rchars[0] (or -1) as
+    delChar.
+
+    Rows of 0, 1, 31, 32 and 33 symbols; a row with no literal (no tag
+    kept); a literal only at column 0 and one only at len - 1; runs of 255
+    and 256 in turn; a run across the tile boundary at column 512 and one
+    across several (every tile a multiple of 512, or of 64 and 256 in the
+    NumPy models); a row of literals only (every tag kept); dense, sparse
+    and half-length rows.  Four channels of one launch, each a symbol
+    scheme with a run scheme: type-2 escapes with escaped runs from 255 on,
+    codes of up to 16 bits with 8-bit run codes, 0-bit literal codes, and
+    8-bit codes with 16-bit run literals after 0-bit codes.  Those rows at
+    ``width`` (>= 1,200) and at ``width - 5``, a width no multiple of 4
+    (rows that take byte loads and byte stores); with ``long_len`` (>=
+    66,000), rows of that many symbols too: runs of 65,535 and 65,536 and
+    trailing runs over 65,535 (escaped as run & 0xFFFF)."""
+    from .ops import bitstream_torch as bt
+
+    sch = edge_schemes()
+    rng = np.random.default_rng(41)
+    pairs = [("type2", "run"), ("lmax16", "run_flat8"), ("zero_bit", "run"),
+             ("flat8", "zero_bit")]
+    sym = np.stack([bt.scheme_luts(sch[a][0]) for a, _ in pairs]).astype(np.int32)
+    run = np.stack([bt.scheme_luts(sch[b][0], run=True) for _, b in pairs]).astype(np.int32)
+    rchars = np.full(len(pairs), EDGE_RCHAR, np.int32)
+
+    def case(label, lit, lengths):
+        n, w = lit.shape
+        vals = np.stack([rng.integers(0, sch[a][1], (n, w)) for a, _ in pairs])
+        vals[vals == EDGE_RCHAR] = EDGE_RCHAR + 1
+        data = np.where(lit[None], vals, EDGE_RCHAR).astype(np.uint8)
+        tags = rng.choice(np.frombuffer(b"acgtn", np.uint8), size=(n, w))
+        return (label, data, lengths, sym, run, rchars, tags)
+
+    rows = ("rows of 0, 1, 31, 32, 33 symbols, no literal, literals only at the ends, "
+            "runs of 255 and 256 and across tiles, all literals")
+    cases = [case(f"{rows}, width {width}", *_run_lits(rng, width)),
+             case(f"{rows}, width {width - 5} (byte loads and stores)",
+                  *_run_lits(rng, width - 5))]
+    if long_len:
+        cases.append(case(f"rows of {long_len} symbols: runs of 65,535 and 65,536, "
+                          "trailing runs over 65,535", *_long_lits(rng, long_len)))
+    return cases
 
 
 def tag_edge_cases(device, long_len: int = 70_000):

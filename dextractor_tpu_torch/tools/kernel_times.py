@@ -1,5 +1,5 @@
-"""Device times of K1 and K4 at the main path's shapes, for the package (and
-the ``chip_smoke.py``) that the import path finds first.
+"""Device times of K1-K4 at the main path's shapes, for the package (and the
+``chip_smoke.py``) that the import path finds first.
 
 Run it as a file; with PYTHONPATH set to another checkout of the repository
 it times that checkout's kernels with that checkout's ``chip_smoke.device_ms``,
@@ -9,16 +9,17 @@ this, other):
     PYTHONPATH=/path/to/other/checkout python3 dextractor_tpu_torch/tools/kernel_times.py
     PYTHONPATH=. python3 dextractor_tpu_torch/tools/kernel_times.py
 
-Shapes: K1 (``ops.emit.encode_plain``) on the arguments that the encode
-step (``parallel.pipeline.channels_fused``) gives it for the uniform batch
-and for the widest bucket of the long-read batch that takes K1/K2; K4
-(``ops.decode_chains.decode_plain``) on ins, mrg and sub of the decode
-phase split's batch at 16 MB (``tools/decode_ablate.py``) in one launch,
-and on ins alone.  Each output is checked against the kernel's twin; each
-time is the mean device time per launch over 20 launches, L2 flushed
-before each.  Prints one ``TIMES: {...}`` JSON line with the card and the
-package's path; needs a CUDA device.  It calls only what older trees have
-too.
+Shapes: K1 (``ops.emit.encode_plain``), K2 (``ops.emit.encode_run``) and K3
+(``ops.emit.pack_tags``) on the arguments that the encode step
+(``parallel.pipeline.qv_encode_step``) gives them for the uniform batch, K1
+and K2 for the widest bucket of the long-read batch that takes K1/K2, and
+K3 for the widest bucket of the long-read batch; K4 (``ops.decode_chains.decode_plain``)
+on ins, mrg and sub of the decode phase split's batch at 16 MB
+(``tools/decode_ablate.py``) in one launch, and on ins alone.  Each output
+is checked against the kernel's twin; each time is the mean device time per
+launch over 20 launches, L2 flushed before each, and warm.  Prints one
+``TIMES: {...}`` JSON line with the card and the package's path; needs a
+CUDA device.  It calls only what older trees have too.
 """
 
 import json
@@ -27,27 +28,34 @@ import sys
 import torch
 
 
-def _k1_args(batch, dev):
-    """The arguments of the encode step's call of K1 on ``batch``, recorded
-    while the twin stands in for the wrapper."""
+def _recorded(batch, dev):
+    """The arguments of the first call of each K1-K3 wrapper of ``ops.emit``
+    that ``parallel.pipeline.qv_encode_step`` makes on ``batch``, recorded
+    while the twins stand in for the wrappers: {wrapper name: arguments}."""
     from dextractor_tpu_torch.ops import bitstream_torch as bt
     from dextractor_tpu_torch.ops import emit
     from dextractor_tpu_torch.parallel import pipeline
 
-    (streams, lengths, sym, run, rchars, _), run_on = batch
-    seen, saved = [], emit.encode_plain
+    twins = {"encode_plain": bt.encode_plain_ref, "encode_run": bt.encode_run_ref,
+             "pack_tags": pipeline._pack_tags}
+    seen, saved = {}, {k: getattr(emit, k) for k in twins}
 
-    def record(*args):
-        seen.append(args)
-        return bt.encode_plain_ref(*args)
+    def recorder(name):
+        def call(*args):
+            seen.setdefault(name, args)
+            return twins[name](*args)
+        return call
 
-    emit.encode_plain = record
+    for k in twins:
+        setattr(emit, k, recorder(k))
     try:
-        pipeline.channels_fused(*(torch.from_numpy(a).to(dev)
-                                  for a in (streams, lengths, sym, run, rchars)), run_on)
+        (streams, lengths, sym, run, rchars, nlut), run_on = batch
+        pipeline.qv_encode_step(*(torch.from_numpy(a).to(dev) for a in (
+            streams, lengths, sym, run, rchars, nlut)), run_on=run_on)
     finally:
-        emit.encode_plain = saved
-    return seen[0]
+        for k, fn in saved.items():
+            setattr(emit, k, fn)
+    return seen
 
 
 def main() -> int:
@@ -59,6 +67,7 @@ def main() -> int:
     from dextractor_tpu_torch.ops import decode2 as d2
     from dextractor_tpu_torch.ops import decode_chains as dch
     from dextractor_tpu_torch.ops import emit
+    from dextractor_tpu_torch.parallel import pipeline
     from dextractor_tpu_torch.testing import (batch_to, long_quiva, step_batch, uniform_quiva,
                                               widest_bucket_batch)
     from dextractor_tpu_torch.tools.decode_ablate import ablate_batch, card_line
@@ -69,8 +78,11 @@ def main() -> int:
     long = long_quiva()
     widths = [w for w, _ in encode_buckets(parse_quiva(long).lengths)]
     i = max(i for i, w in enumerate(widths) if emit.fused_ok(w))
-    k1 = {"uniform": _k1_args(step_batch(uniform_quiva()), dev),
-          f"widest K1 bucket, width {widths[i]}": _k1_args(widest_bucket_batch(long, i), dev)}
+    uniform = _recorded(step_batch(uniform_quiva()), dev)
+    k12 = {"uniform": uniform,
+           f"widest K1 bucket, width {widths[i]}": _recorded(widest_bucket_batch(long, i), dev)}
+    k3 = {"uniform": uniform["pack_tags"], f"widest bucket, width {widths[-1]}": _recorded(
+        widest_bucket_batch(long), dev)["pack_tags"]}
     _, args, kw, _ = ablate_batch(16)
     rd, tg, ri, rm, rs, rl, sids, f1, f2, types, dc, sc = batch_to(args, dev)
     sig, sw = d2.channel_params(sids, types, kw["subw"], kw["chan_l2"])
@@ -80,27 +92,41 @@ def main() -> int:
           "ins": ([ri], rl, f1[int(sids[2])][None].contiguous(), f2, [sig[2]], [sw[2]])}
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     out = {"card": card_line(dev), "package": dextractor_tpu_torch.__path__[0],
-           "timer": "chip_smoke.device_ms, mean device time per launch of 20, L2 flushed"}
+           "timer": "chip_smoke.device_ms, mean device time per launch of 20, "
+                    "[L2 flushed, warm]"}
 
-    def flushed_ms(fn, kernel):
-        ms, _ = chip_smoke.device_ms(lambda: (flush.zero_(), fn()), match=kernel)
-        if ms is None:
+    def times(fn, kernel):
+        warm, _ = chip_smoke.device_ms(fn, match=kernel)
+        flushed, _ = chip_smoke.device_ms(lambda: (flush.zero_(), fn()), match=kernel)
+        if warm is None or flushed is None:
             raise RuntimeError(f"the profiler recorded no launch of {kernel}")
-        return ms
+        return [flushed, warm]
 
-    for label, a in k1.items():
-        got, ref = emit.encode_plain(*a), bt.encode_plain_ref(*a)
+    def words_equal(got, ref):
         keep = torch.arange(ref[0].shape[-1], device=dev) < ((ref[1].long() + 31) >> 5)[..., None]
-        if not (torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]) and torch.equal(
-                torch.where(keep, got[0], 0), torch.where(keep, ref[0], 0))):
-            raise AssertionError(f"encode_plain ({label}) disagrees with its twin")
-        out[f"encode_plain ({label}, {tuple(a[0].shape)})"] = flushed_ms(
-            lambda: emit.encode_plain(*a), "encode_plain_kernel")
+        return (torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]) and torch.equal(
+            torch.where(keep, got[0], 0), torch.where(keep, ref[0], 0)))
+
+    encode = [("encode_plain", emit.encode_plain, bt.encode_plain_ref),
+              ("encode_run", emit.encode_run, bt.encode_run_ref)]
+    for label, recorded in k12.items():
+        for name, kern, twin in encode:
+            a = recorded[name]
+            if not words_equal(kern(*a), twin(*a)):
+                raise AssertionError(f"{name} ({label}) disagrees with its twin")
+            out[f"{name} ({label}, {tuple(a[0].shape)})"] = times(lambda: kern(*a),
+                                                                  f"{name}_kernel")
+    for label, a in k3.items():
+        got, ref = emit.pack_tags(*a), pipeline._pack_tags(*a)
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"pack_tags ({label}) disagrees with its twin")
+        out[f"pack_tags ({label}, {tuple(a[0].shape)})"] = times(lambda: emit.pack_tags(*a),
+                                                                 "pack_tags_kernel")
     for label, a in k4.items():
         got, ref = dch.decode_plain(*a, **dkw), d2.plain_chains(*a, **dkw)
         if not all(torch.equal(g, r) for g, r in zip(got, ref)):
             raise AssertionError(f"decode_plain ({label}) disagrees with its twin")
-        out[f"decode_plain ({label}, {rl.shape[0]} rows)"] = flushed_ms(
+        out[f"decode_plain ({label}, {rl.shape[0]} rows)"] = times(
             lambda: dch.decode_plain(*a, **dkw), "decode_plain_kernel")
     print("TIMES: " + json.dumps(out), flush=True)
     return 0

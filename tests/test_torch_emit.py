@@ -3,6 +3,8 @@ the JAX package's XLA formulation, which tests/test_emit_pallas.py pins to
 the Pallas kernels.  Integer codec: every comparison is exact.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ from dextractor_tpu.ops.twobit import NUMBER_BASE_LUT
 from dextractor_tpu_torch.ops import bitstream_torch as bt
 from dextractor_tpu_torch.ops import emit
 from dextractor_tpu_torch.ops import huffman as th
+from dextractor_tpu_torch.testing import EDGE_RCHAR, run_edge_rows
 from dextractor_tpu_torch.utils import dispatch
 
 RCHAR = ord("f")
@@ -96,16 +99,28 @@ def test_plain_twin_matches_xla(kind):
     _check(got, ref)
 
 
-@pytest.mark.parametrize("kind", ["normal", "concentrated"])
+@functools.lru_cache(maxsize=None)
+def _edge_rows():
+    """testing.run_edge_rows at width 1,200 and at 1,195 (no multiple of 4)."""
+    return run_edge_rows(1200)
+
+
+@pytest.mark.parametrize("kind", ["normal", "concentrated", "edge", "edge_ragged"])
 def test_run_twin_matches_xla(kind):
-    d, ln = _rows(seed=1)
-    sl = bt.scheme_luts(_scheme(kind))
-    rl = bt.scheme_luts(_run_scheme(), run=True)
-    ref = _jax_run(d, ln, np.int32(RCHAR), sl, rl)
-    got = emit.encode_run(torch.from_numpy(d)[None], torch.from_numpy(ln),
-                          torch.from_numpy(sl)[None], torch.from_numpy(rl)[None],
-                          torch.tensor([RCHAR], dtype=torch.int32))
-    _check(got, ref)
+    """Random rows under two symbol schemes, and the edge rows of
+    testing.run_edge_rows at two widths, each of their four channels with
+    its own symbol and run scheme."""
+    if kind.startswith("edge"):
+        _, data, ln, sym, run, rch, _ = _edge_rows()[kind == "edge_ragged"]
+    else:
+        d, ln = _rows(seed=1)
+        data, rch = d[None], np.array([RCHAR], np.int32)
+        sym = bt.scheme_luts(_scheme(kind))[None]
+        run = bt.scheme_luts(_run_scheme(), run=True)[None]
+    got = emit.encode_run(*(torch.from_numpy(a) for a in (data, ln, sym, run, rch)))
+    for c in range(data.shape[0]):
+        ref = _jax_run(data[c], ln, rch[c], sym[c], run[c])
+        _check(tuple(x[c:c + 1] for x in got), ref)
 
 
 def test_run_twin_run_over_65535():
@@ -124,12 +139,26 @@ def test_run_twin_run_over_65535():
     _check(got, ref)
 
 
-@pytest.mark.parametrize("del_char", [RCHAR, -1])
-def test_pack_tags_twin_matches_xla(del_char):
-    d, ln = _rows(seed=2)
-    rng = np.random.default_rng(3)
-    tags = rng.choice(np.frombuffer(b"acgtn", np.uint8), size=d.shape)
-    ref_p, ref_c = _jax_tags(tags, d, ln, jnp.int32(del_char), NUMBER_BASE_LUT)
+@pytest.mark.parametrize("del_char, rows", [
+    pytest.param(RCHAR, "random", id=str(RCHAR)), pytest.param(-1, "random", id="-1"),
+    *(pytest.param(dc, rows, id=f"{dc}-{rows}")
+      for rows in ("edge", "edge_ragged") for dc in (EDGE_RCHAR, -1))])
+def test_pack_tags_twin_matches_xla(del_char, rows):
+    """Random rows, and the edge rows of testing.run_edge_rows at two widths
+    (no tag kept, every tag kept, lengths 0-33), with delChar and with -1
+    (every tag kept)."""
+    if rows == "random":
+        d, ln = _rows(seed=2)
+        rng = np.random.default_rng(3)
+        tags = rng.choice(np.frombuffer(b"acgtn", np.uint8), size=d.shape)
+    else:
+        _, data, ln, _, _, _, tags = _edge_rows()[rows == "edge_ragged"]
+        d = np.ascontiguousarray(data[0])
+    # the JAX package packs whole bytes of 4 columns: pad the rows past
+    # every length to a multiple of 4, which keeps ceil(L/4) bytes a row
+    pad = ((0, 0), (0, -d.shape[1] % 4))
+    ref_p, ref_c = _jax_tags(np.pad(tags, pad), np.pad(d, pad), ln, jnp.int32(del_char),
+                             NUMBER_BASE_LUT)
     got_p, got_c = emit.pack_tags(
         torch.from_numpy(tags), torch.from_numpy(d), torch.from_numpy(ln),
         torch.tensor([del_char], dtype=torch.int32), torch.from_numpy(NUMBER_BASE_LUT))

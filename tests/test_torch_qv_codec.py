@@ -124,6 +124,8 @@ cases = [("uniform", small, False), ("sub_heavy", sub, False),
          ("sub_heavy_lossy", sub, True), ("long_reads", longr, False)]
 chip_smoke.phase_encode_kernels("cpu", small, longr, wide_len=600)
 chip_smoke.widest_fused_plain(longr, "cpu")
+chip_smoke.widest_fused_run(longr, "cpu")
+chip_smoke.widest_tags(longr, "cpu")
 _, _, encoded = chip_smoke.phase_encode_slice("cpu", cases)
 chip_smoke.phase_encode_step("cpu", small, longr)
 chip_smoke.phase_decode_kernels("cpu", encoded, long_len=600, row_len=300)
@@ -163,7 +165,8 @@ print(sorted(m for m in sys.modules if m in ("jax", "dextractor_tpu")
 def test_chip_smoke_reads_ptxas():
     """chip_smoke's ptxas summary: one entry per compiled kernel, named from
     the mangled symbol (nvcc's prefix for an anonymous namespace may end in
-    digits; a template kernel comes once per instance), with its registers,
+    digits, and its length may span the kernel's name too; a template kernel
+    comes once per instance), with its registers,
     shared memory and spills."""
     import chip_smoke
 
@@ -176,12 +179,18 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117lut_gather_kernelIh
 ptxas info    : Function properties for _ZN12_GLOBAL__N_117lut_gather_kernelIhLb1EEEvPKT_PKiPix
     8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 20 registers, 1024 bytes smem
+ptxas info    : Compiling entry function '_ZN40fe1_7_emit_cu_b18bf7b716pack_tags_kernelEPKhS1_' for 'sm_90a'
+ptxas info    : Function properties for _ZN40fe1_7_emit_cu_b18bf7b716pack_tags_kernelEPKhS1_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers, 4648 bytes smem
 """
     assert chip_smoke.ptxas_summary(out) == [
         ("decode_plain_kernel", "Used 40 registers, used 1 barriers, 5184 bytes smem, 552 "
          "bytes cmem[0]; 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
         ("lut_gather_kernel", "Used 20 registers, 1024 bytes smem; 8 bytes stack frame, 4 "
-         "bytes spill stores, 4 bytes spill loads")]
+         "bytes spill stores, 4 bytes spill loads"),
+        ("pack_tags_kernel", "Used 48 registers, used 1 barriers, 4648 bytes smem; 0 bytes "
+         "stack frame, 0 bytes spill stores, 0 bytes spill loads")]
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(sub_heavy=True, del_run=False),

@@ -1,7 +1,8 @@
-"""NumPy models of the work schedules of four CUDA kernels, which cannot run
+"""NumPy models of the work schedules of six CUDA kernels, which cannot run
 on this host: K8 ``pack_words`` as tiles of a row across blocks with a
-decoupled look-back and K1 ``encode_plain`` as warps over tiles of a row
-chained by the same look-back (ops/csrc/emit.cu); K5 ``decode_run`` and K4
+decoupled look-back, and K1 ``encode_plain``, K2 ``encode_run`` and K3
+``pack_tags`` as warps over tiles of a row chained by the same look-back
+(ops/csrc/emit.cu); K5 ``decode_run`` and K4
 ``decode_plain`` as one warp per chain, whose lanes speculate, synchronise,
 scan and write (ops/csrc/decode.cu).  Each
 model follows its kernel step by step at small tile and lane sizes and is
@@ -15,7 +16,10 @@ import torch
 
 from dextractor_tpu_torch.ops import bitstream_torch as bt
 from dextractor_tpu_torch.ops import decode2 as d2
-from dextractor_tpu_torch.testing import decode_edge_cases, encode_edge_rows
+from dextractor_tpu_torch.ops.twobit import NUMBER_BASE_LUT
+from dextractor_tpu_torch.parallel.pipeline import _pack_tags
+from dextractor_tpu_torch.testing import (EDGE_RCHAR, decode_edge_cases, encode_edge_rows,
+                                          run_edge_rows)
 
 M32 = 0xFFFFFFFF
 
@@ -515,3 +519,281 @@ def test_encode_plain_tile_schedule(case, tile, per_lane):
     ref = np.where(np.arange(words.shape[2]) < raw[..., None],
                    words.numpy().astype(np.int64) & M32, 0)
     np.testing.assert_array_equal(gw, ref, err_msg=label)
+
+
+# ---------------------------------------------------------------------------
+# K2 and K3: K1's tiles for the RLE channels and for the delTag
+# ---------------------------------------------------------------------------
+
+def _put(win, b, v, w):
+    """OR the w-bit value v into the MSB-first words win at bit b."""
+    end = b + w
+    for q in range(b >> 5, ((end - 1) >> 5) + 1) if w else ():
+        shift = 32 * (q + 1) - end
+        win[q] |= ((v << shift) if shift >= 0 else (v >> -shift)) & M32
+
+
+def _run_code(pk, run):
+    """(value, width, last granule) of the run code of ``run`` from the
+    packed run-LUT entry of min(run, 255): an escape appends run & 0xFFFF."""
+    bits, ln = pk >> 6, (pk >> 1) & 31
+    if pk & 1:
+        return (bits << 16) | (run & 0xFFFF), ln + 16, 16
+    return bits, ln, ln
+
+
+def _look_back(r, k, tpr, agg, inc, rng):
+    """The exclusive prefix of tile k of row r: the row's earlier tiles
+    folded, each seen with its inclusive prefix or, at random, its
+    aggregate, up to the nearest inclusive prefix taken."""
+    excl = (0, 0)
+    for j in range(k - 1, -1, -1):
+        t = r * tpr + j
+        if t in inc and rng.random() < 0.5:
+            return _combine(inc[t], excl)
+        excl = _combine(agg[t], excl)
+    return excl
+
+
+def _lane_steps(lo, hi, step, per_lane):
+    """The (step start, [(lane, columns)]) of a tile walked in warp steps."""
+    for s0 in range(lo, hi, step):
+        yield s0, [(i, range(s0 + i * per_lane, min(s0 + (i + 1) * per_lane, hi)))
+                   for i in range(32)]
+
+
+def encode_run_tiles(data, lengths, sym_luts, run_luts, rchars, tile, per_lane, rng):
+    """The K2 kernel's schedule: K1's tiles and steps (``encode_plain_tiles``)
+    over an RLE channel.  A tile that is not its row's last first finds its
+    last literal, walking back from its last step, and publishes it; a later
+    tile takes the row's last literal before it from the nearest earlier
+    tile that has one.  Then the tiles fold, publish and look back over
+    (bit count, last <= 32 bits) as K1's do.  In each step the lanes' last
+    literals, max-scanned from the one carried, give each lane the literal
+    before its symbols; a literal emits its run code, then its own code.
+    The row's last tile emits the trailing run, stores the partial last
+    word, t and lg.  Returns (words, t, lg) as the twin does, with words
+    past ceil(t/32) zero; every word up to it is stored once, none past."""
+    c, n_rows, width = data.shape
+    step = 32 * per_lane
+    tpr = max(1, -(-width // tile))
+    mp = 2 * width + 2
+    out = np.zeros((c, n_rows, mp), np.int64)
+    writes = np.zeros((c, n_rows, mp), np.int64)
+    t_out = np.full((c, n_rows), -1, np.int64)
+    lg_out = np.full((c, n_rows), -1, np.int64)
+    agg, inc, lits = {}, {}, {}
+    for ticket in range(c * n_rows * tpr):
+        r, k = divmod(ticket, tpr)
+        ch, row = divmod(r, n_rows)
+        ln = max(0, min(int(lengths[row]), width))
+        lo = k * tile
+        if k > 0 and lo >= ln:
+            continue
+        hi = min(lo + tile, ln)
+        last_tile = hi == ln
+        d = [int(x) for x in data[ch, row, lo:hi]]
+        rchar = int(rchars[ch])
+        slut = [int(x) for x in sym_luts[ch]]
+        rlut = [int(x) for x in run_luts[ch]]
+        lit_cols = [lo + j for j, s in enumerate(d) if s != rchar]
+        if not last_tile:                          # walk back from the last step
+            tl, s0 = -1, lo + (hi - lo - 1) // step * step
+            while s0 >= lo and tl < 0:
+                tl = max((j for j in lit_cols if s0 <= j < s0 + step), default=-1)
+                s0 -= step
+            lits[ticket] = tl
+        excl_lit = next((lits[r * tpr + j] for j in range(k - 1, -1, -1)
+                         if lits[r * tpr + j] >= 0), -1)
+
+        def lane_emissions(prev, cols):
+            """(emissions [(v, w)], last literal) of a lane's columns."""
+            ems = []
+            for j in cols:
+                if d[j - lo] != rchar:
+                    run = j - prev - 1
+                    ems.append(_run_code(rlut[min(run, 255)], run)[:2])
+                    ems.append(_emission(slut[d[j - lo]], d[j - lo])[:2])
+                    prev = j
+            return ems, prev
+
+        def steps():
+            """Each step's lanes' emissions, from the scan of last literals."""
+            prev = excl_lit
+            for s0, lanes in _lane_steps(lo, hi, step, per_lane):
+                mx = [max((j for j in cols if d[j - lo] != rchar), default=-1)
+                      for _, cols in lanes]
+                before = np.maximum.accumulate([prev] + mx)  # exclusive, seeded
+                yield s0, [lane_emissions(int(before[i]), cols)[0] for i, cols in lanes]
+                prev = int(before[-1])
+
+        excl = (0, 0)
+        if not last_tile:
+            pair = (0, 0)
+            for _, lanes in steps():
+                for ems in lanes:
+                    for v, w in ems:
+                        pair = _combine(pair, (w, v))
+            agg[ticket] = pair
+            if k == 0:
+                inc[ticket] = pair
+        if k > 0:
+            excl = _look_back(r, k, tpr, agg, inc, rng)
+            if not last_tile:
+                inc[ticket] = _combine(excl, agg[ticket])
+        bit = excl[0]
+        o = bit & 31
+        carry = (excl[1] << (32 - o)) & M32 if o else 0
+        for _, lanes in steps():
+            tots = [sum(w for _, w in ems) for ems in lanes]
+            o, step_bits = bit & 31, sum(tots)
+            win = [0] * ((o + step_bits + 31) // 32 + 2)
+            win[0] = carry
+            b = o
+            for ems, tot in zip(lanes, tots):
+                for v, w in ems:
+                    _put(win, b, v, w)
+                    b += w
+            full = (o + step_bits) >> 5
+            for i in range(full):
+                out[ch, row, (bit >> 5) + i] = win[i]
+                writes[ch, row, (bit >> 5) + i] += 1
+            carry = win[full] if (o + step_bits) & 31 else 0
+            bit += step_bits
+        if last_tile:
+            last_lit = max([excl_lit] + lit_cols)
+            trail = ln - last_lit - 1
+            tv, tn, lg = 0, 0, 0
+            if trail > 0:
+                tv, tn, lg = _run_code(rlut[min(trail, 255)], trail)
+            elif ln > 0:
+                lg = _emission(slut[d[-1]], d[-1])[2]
+            win = [carry, 0]
+            _put(win, bit & 31, tv, tn)
+            for i in range(((bit & 31) + tn + 31) >> 5):
+                out[ch, row, (bit >> 5) + i] = win[i]
+                writes[ch, row, (bit >> 5) + i] += 1
+            t_out[ch, row], lg_out[ch, row] = bit + tn, lg
+    raw = (t_out + 31) >> 5
+    assert (t_out >= 0).all() and (lg_out >= 0).all()
+    assert (writes == (np.arange(mp) < raw[..., None])).all(), \
+        "a word stored other than once, or past ceil(t/32)"
+    return out, t_out, lg_out
+
+
+def pack_tags_tiles(tags, dels, lengths, del_char, number_lut, tile, per_lane, rng):
+    """The K3 kernel's schedule: K1's tiles and steps over the delTag rows.
+    A lane keeps the tags whose delQV byte is not del_char (all when it is
+    negative); a scan of the lanes' counts places each lane's 2-bit codes
+    at bit 2 * rank of a window of big-endian words, whose finished words
+    are stored as four bytes each.  The tiles chain by the look-back over
+    (2 * kept, last <= 32 bits); the row's last tile stores the partial
+    word's bytes, clens and zeros up to ceil(L/4).  Returns (packed,
+    clens); every byte of every row is stored exactly once."""
+    n_rows, width = tags.shape
+    step = 32 * per_lane
+    tpr = max(1, -(-width // tile))
+    wb = (width + 3) // 4
+    out = np.zeros((n_rows, wb), np.int64)
+    writes = np.zeros((n_rows, wb), np.int64)
+    clens = np.full(n_rows, -1, np.int64)
+    lut = [int(x) & 3 for x in number_lut]
+    agg, inc = {}, {}
+    for ticket in range(n_rows * tpr):
+        row, k = divmod(ticket, tpr)
+        ln = max(0, min(int(lengths[row]), width))
+        lo = k * tile
+        if k > 0 and lo >= ln:
+            continue
+        hi = min(lo + tile, ln)
+        last_tile = hi == ln
+        code = {j: lut[int(tags[row, j])] for j in range(lo, hi)
+                if del_char < 0 or int(dels[row, j]) != del_char}
+        excl = (0, 0)
+        if not last_tile:
+            pair = (0, 0)
+            for cd in code.values():
+                pair = _combine(pair, (2, cd))
+            agg[ticket] = pair
+            if k == 0:
+                inc[ticket] = pair
+        if k > 0:
+            excl = _look_back(row, k, tpr, agg, inc, rng)
+            if not last_tile:
+                inc[ticket] = _combine(excl, agg[ticket])
+        bit = excl[0]
+        o = bit & 31
+        carry = (excl[1] << (32 - o)) & M32 if o else 0
+        for _, lanes in _lane_steps(lo, hi, step, per_lane):
+            kept = [[code[j] for j in cols if j in code] for _, cols in lanes]
+            o, step_bits = bit & 31, 2 * sum(map(len, kept))
+            win = [0] * ((o + step_bits + 31) // 32 + 2)
+            win[0] = carry
+            p = o
+            for codes in kept:                      # a lane's codes at 2 * rank
+                v = 0
+                for cd in codes:
+                    v = (v << 2) | cd
+                _put(win, p, v, 2 * len(codes))
+                p += 2 * len(codes)
+            full = (o + step_bits) >> 5
+            for i in range(full):
+                b0 = 4 * ((bit >> 5) + i)
+                out[row, b0:b0 + 4] = [(win[i] >> s) & 0xFF for s in (24, 16, 8, 0)]
+                writes[row, b0:b0 + 4] += 1
+            carry = win[full] if (o + step_bits) & 31 else 0
+            bit += step_bits
+        if last_tile:
+            clens[row] = bit >> 1
+            b0 = 4 * (bit >> 5)
+            tail = [(carry >> s) & 0xFF for s in (24, 16, 8, 0)] + [0] * wb
+            out[row, b0:] = tail[:wb - b0]
+            writes[row, b0:] += 1
+    assert (clens >= 0).all()
+    assert (writes == 1).all(), "a byte stored other than once"
+    return out, clens
+
+
+@functools.lru_cache(maxsize=None)
+def _run_rows():
+    return run_edge_rows(1200)
+
+
+@pytest.mark.parametrize("tile, per_lane", [(64, 1), (256, 4)])
+@pytest.mark.parametrize("case", range(2))
+def test_encode_run_tile_schedule(case, tile, per_lane):
+    """testing.run_edge_rows at widths 1,200 and 1,195 (rows of 0-33
+    symbols, no literal, literals only at the ends, runs of 255 and 256 and
+    across tiles, all literals; four scheme pairs with escapes, 0-bit codes
+    and 16-bit run literals) against bitstream_torch.encode_run_ref: words
+    up to ceil(t/32), t, lg."""
+    label, data, lengths, sym, run, rchars, _ = _run_rows()[case]
+    words, t, lg = bt.encode_run_ref(*(torch.from_numpy(a)
+                                       for a in (data, lengths, sym, run, rchars)))
+    rng = np.random.default_rng(case * 11 + tile)
+    gw, gt, glg = encode_run_tiles(data, lengths, sym, run, rchars, tile, per_lane, rng)
+    assert gt.tolist() == t.tolist() and glg.tolist() == lg.tolist(), label
+    raw = (gt + 31) >> 5
+    ref = np.where(np.arange(words.shape[2]) < raw[..., None],
+                   words.numpy().astype(np.int64) & M32, 0)
+    np.testing.assert_array_equal(gw, ref, err_msg=label)
+
+
+@pytest.mark.parametrize("tile, per_lane", [(64, 1), (256, 4)])
+@pytest.mark.parametrize("del_char", [EDGE_RCHAR, -1])
+@pytest.mark.parametrize("case", range(2))
+def test_pack_tags_tile_schedule(case, del_char, tile, per_lane):
+    """testing.run_edge_rows' tags and delQV rows at widths 1,200 and 1,195
+    (no tag kept, every tag kept, rows of 0-33 symbols) with delChar and
+    with -1 against parallel.pipeline._pack_tags: every byte, clens."""
+    label, data, lengths, _, _, _, tags = _run_rows()[case]
+    dels = np.ascontiguousarray(data[0])
+    ref_p, ref_c = _pack_tags(torch.from_numpy(tags), torch.from_numpy(dels),
+                              torch.from_numpy(lengths),
+                              torch.tensor([del_char], dtype=torch.int32),
+                              torch.from_numpy(NUMBER_BASE_LUT))
+    rng = np.random.default_rng(case * 13 + tile)
+    got_p, got_c = pack_tags_tiles(tags, dels, lengths, del_char, NUMBER_BASE_LUT, tile,
+                                   per_lane, rng)
+    assert got_c.tolist() == ref_c.tolist(), label
+    np.testing.assert_array_equal(got_p, ref_p.numpy().astype(np.int64), err_msg=label)
