@@ -26,12 +26,16 @@ Phases, each printing one line (or a few) before the final JSON lines:
    rows, a width no multiple of 4; K3 with delChar and with -1); K1 and K2
    timed at the widest bucket of the long-read batch that K1/K2 take, K3 at
    the widest bucket of the long-read batch; K9
-   (lut_gather) and K8 (pack_words) on what the encode step's emission
-   route gives them at the widest bucket of the long-read batch (61,440
-   symbols, 122,881 slots on the RLE channel) and on edge rows (0 slots,
-   all-zero widths, 32-bit emissions that straddle words, type-2 and run
-   escapes from 70,000-symbol rows, every u8 and run index 0-255); K8 also
-   at the narrowest bucket the emission route takes;
+   (lut_gather, every lookup of a bucket in one launch) and K8 (pack_words)
+   on what the encode step's emission route gives them at the widest
+   bucket of the long-read batch (five lookups of 8 x 61,440, 122,881
+   slots on its one RLE channel) and on edge inputs (K9: groups of 0 and of one
+   element, views one element into their buffers, u8 and int32 in one
+   launch, nine groups in two launches, every u8 and run index 0-255; K8: 0
+   slots, all-zero widths, 32-bit emissions that straddle words; both:
+   type-2 and run escapes from 70,000-symbol rows); K9 also timed on one
+   lookup beside torch.take, K8 at the narrowest bucket the emission route
+   takes;
 4. encode slice: encode_quiva_to_dexqv(device=True) on four corpora (the
    uniform batch, a sub-heavy corpus, the same lossy, the log-normal
    long-read batch), each byte for byte against the native C encoder
@@ -42,7 +46,8 @@ Phases, each printing one line (or a few) before the final JSON lines:
    and the share of it the card was busy; the stream time of the widest
    long-read bucket's four QV channels through each route (K1/K2, K9/K8);
    the device time of each encode kernel over one encode of the long-read
-   batch, its launches and their mean;
+   batch, its launches and their mean; K9 must launch once per emission
+   bucket (23);
 6. decode kernels: K4 (decode_plain: ins, mrg, sub in one launch, and one
    channel), K5 (decode_run) on delQV and K6 (expand_runs) with the delTag
    codes on delQV at the uniform batch's decode shapes, K5 and K6 on subQV
@@ -59,10 +64,13 @@ Phases, each printing one line (or a few) before the final JSON lines:
    on the uniform batch as one rectangle; then the device time of each
    decode kernel over one decode of the long-read batch on each route.
 9. 2-bit kernels: K7 (pack2bit) and the unpack (unpack2bit) against their
-   twins, bit for bit, on the flat reads of the uniform .fasta (32,000
-   reads of 1,950-2,050 bases) and on edge reads (lengths 0-7, a
-   70,000-base read, every byte value) with the base, arrow and a random
-   table and the three letter tables;
+   twins, bit for bit, on the flat reads of the three 2-bit corpora of
+   phase 10, on edge reads (lengths 0-7, a 70,000-base read, every byte
+   value) and on testing.twobit_tile_edges (K7's payload tiles: thousands
+   of empty reads in a tile, reads ending at tile boundaries, a read over
+   two tiles, a first base off 16-byte alignment) with the base, arrow and
+   a random table and the three letter tables; K7 timed at the three
+   corpora's shapes, the unpack at the uniform .fasta's;
 10. 2-bit slice: encode_fasta_to_dexta / encode_arrow_to_dexar and their
    decoders with device=True on three corpora (the uniform .fasta, a
    log-normal long-read .fasta, an .arrow of 8,000 reads), each encode byte
@@ -422,13 +430,14 @@ def concentrated_luts():
 
 
 def route_inputs(fn):
-    """The arguments that fn() gives the wrappers of K9 (lut_gather) and K8
-    (pack_words), recorded while the twins stand in for the wrappers (no
-    kernel launches): {"lut_gather": [(data, lut)], "pack_words": [(v, n)]}."""
+    """The arguments that fn() gives the wrappers of K9 (lut_gather_groups)
+    and K8 (pack_words), recorded while the twins stand in for the wrappers
+    (no kernel launches): {"lut_gather": [(groups, luts)], "pack_words":
+    [(v, n)]}."""
     from dextractor_tpu_torch.ops import lut
 
     seen = {"lut_gather": [], "pack_words": []}
-    saved = lut.lut_gather, lut.pack_words
+    saved = lut.lut_gather_groups, lut.pack_words
 
     def recorder(name, twin):
         def call(*args):
@@ -436,27 +445,45 @@ def route_inputs(fn):
             return twin(*args)
         return call
 
-    lut.lut_gather = recorder("lut_gather", lut.lut_gather_ref)
+    lut.lut_gather_groups = recorder("lut_gather", lut.lut_gather_groups_ref)
     lut.pack_words = recorder("pack_words", lut.pack_words_ref)
     try:
         fn()
     finally:
-        lut.lut_gather, lut.pack_words = saved
+        lut.lut_gather_groups, lut.pack_words = saved
     return seen
 
 
+def _groups_bytes(groups, luts):
+    """Bytes that K9 must move for ``groups``: each element read once and
+    its entry written once, each table used read once."""
+    used = {int(k) for data, k in groups if data.numel()}
+    return sum(d.numel() * (d.element_size() + 4) for d, _ in groups) + 1024 * len(used)
+
+
 def emission_edges(dev, wide_len: int):
-    """Edge inputs of K9 and K8 on ``dev``: every u8 and every run index
-    0-255 as int32, also as views one element into their buffers (too
-    unaligned for K9's vector loads); 0 slots, all-zero widths, and 32-bit
-    emissions of which all but the first straddle words."""
+    """Edge inputs of K9 and K8 on ``dev``.  K9, as (groups, luts): every u8
+    and every run index 0-255 as int32, also as views one element into
+    their buffers (too unaligned for K9's vector loads), each alone; groups
+    of 0 and of one element among u8 and int32 groups of whole and partial
+    tiles in one launch; nine groups (two launches).  K8, as (v, n): 0
+    slots, all-zero widths, and 32-bit emissions of which all but the first
+    straddle words."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(13)
+    luts = torch.from_numpy(rng.integers(0, 1 << 30, (8, 256)).astype(np.int32)).to(dev)
     idx = torch.arange(257, dtype=torch.int32, device=dev) % 256
-    lut_in = [idx[:256].to(torch.uint8), idx[:256].reshape(16, 16),
+    single = [idx[:256].to(torch.uint8), idx[:256].reshape(16, 16),
               idx.to(torch.uint8)[1:], idx[1:]]
+    tiles = torch.from_numpy(rng.integers(0, 256, 3 * 4096 + 5, dtype=np.int32)).to(dev)
+    mixed = [(tiles.to(torch.uint8), 0), (torch.zeros(0, dtype=torch.uint8, device=dev), 1),
+             (tiles[1:4098], 2), (idx[255:256], 3), (tiles[:8192].reshape(2, 4096), 4),
+             (tiles.to(torch.uint8)[3:4100], 5), (torch.zeros(0, dtype=torch.int32, device=dev), 6),
+             (idx.to(torch.uint8)[:1], 7)]
+    lut_in = [([(x, k)], luts) for k, x in enumerate(single)]
+    lut_in += [(mixed, luts), (mixed + [(tiles, 7)], luts)]
     wide = np.full((3, wide_len), 32, np.int32)
     wide[:, 0] = 3
     v = rng.integers(0, 1 << 32, wide.shape, dtype=np.uint64)
@@ -663,58 +690,74 @@ def phase_encode_kernels(device, uniform: bytes, long: bytes, wide_len: int = 70
     (streams, lengths, sym, run, rchars, _), run_on = widest_bucket_batch(long)
     step_in = [torch.from_numpy(a).to(dev) for a in (streams, lengths, sym, run, rchars)]
     seen = route_inputs(lambda: pipeline.channels_emissions(*step_in, run_on))
-    twins = {"lut_gather": lut.lut_gather_ref, "pack_words": lut.pack_words_ref}
+    kerns = {"lut_gather": lut.lut_gather_groups, "pack_words": lambda *a: (lut.pack_words(*a),)}
+    twins = {"lut_gather": lut.lut_gather_groups_ref,
+             "pack_words": lambda *a: (lut.pack_words_ref(*a),)}
     for name in ("lut_gather", "pack_words"):
-        kern = getattr(lut, name)
-        res[name] = {"max_abs_err": max(_check_same(name, (kern(*a),), (twins[name](*a),))
+        res[name] = {"max_abs_err": max(_check_same(name, kerns[name](*a), twins[name](*a))
                                         for a in seen[name])}
-    shapes = {k: [tuple(a[0].shape) for a in v] for k, v in seen.items()}
-    log(f"[kernel] lut_gather on {shapes['lut_gather']} and pack_words on "
+    shapes = {"lut_gather": [[(tuple(d.shape), str(d.dtype)) for d, _ in a[0]]
+                             for a in seen["lut_gather"]],
+              "pack_words": [tuple(a[0].shape) for a in seen["pack_words"]]}
+    log(f"[kernel] lut_gather on {shapes['lut_gather']} (one launch) and pack_words on "
         f"{shapes['pack_words']} (the emission route at the widest long-read bucket, "
         f"streams {tuple(streams.shape)}, run_on {run_on}) bit-identical to their twins")
     if on_card(dev):
-        g = next(a for a in seen["lut_gather"] if a[0].dtype == torch.uint8)
-        n_el = g[0].numel()
-        idx = g[0].long()
+        groups, luts = seen["lut_gather"][0]
         res["lut_gather"].update(measure(
-            "lut_gather", lambda: lut.lut_gather(*g), lambda: twins["lut_gather"](*g),
-            5 * n_el + 1024, library=lambda: torch.take(g[1], idx)))
+            "lut_gather", lambda: lut.lut_gather_groups(groups, luts),
+            lambda: lut.lut_gather_groups_ref(groups, luts), _groups_bytes(groups, luts),
+            label=f"lut_gather (widest long-read bucket, {len(groups)} lookups in one launch)"))
+        # one lookup alone, beside the one PyTorch call that computes it
+        g = next(([(d, k)], luts) for d, k in groups if d.dtype == torch.uint8)
+        idx = g[0][0][0].long()
+        table = luts[g[0][0][1]]
+        one = measure("lut_gather", lambda: lut.lut_gather_groups(*g),
+                      lambda: lut.lut_gather_groups_ref(*g), _groups_bytes(*g),
+                      library=lambda: torch.take(table, idx),
+                      label=f"lut_gather (one lookup, {tuple(idx.shape)} u8)")
+        res["lut_gather"].update({f"one_{k}": one[k] for k in (
+            "ms", "warm_ms", "plain_ms", "bound_ms", "event_ms", "bytes", "library_ms")})
         pw = max(seen["pack_words"], key=lambda a: a[0].shape[1])
         rows, m = pw[0].shape
         res["pack_words"].update(measure(
-            "pack_words", lambda: lut.pack_words(*pw), lambda: twins["pack_words"](*pw),
+            "pack_words", lambda: lut.pack_words(*pw), lambda: lut.pack_words_ref(*pw),
             8 * rows * m + 4 * rows * (m + 1),
             label=f"pack_words (widest long-read bucket, {rows} x {m} slots)"))
         # and at the narrowest bucket the emission route takes, where K8 has
         # the most rows of the route and the fewest slots
         pw, label = narrowest_pack_words(long, dev)
-        _check_same(label, (lut.pack_words(*pw),), (twins["pack_words"](*pw),))
+        _check_same(label, (lut.pack_words(*pw),), (lut.pack_words_ref(*pw),))
         rows, m = pw[0].shape
         narrow = measure("pack_words", lambda: lut.pack_words(*pw),
-                         lambda: twins["pack_words"](*pw), 8 * rows * m + 4 * rows * (m + 1),
+                         lambda: lut.pack_words_ref(*pw), 8 * rows * m + 4 * rows * (m + 1),
                          label=label)
         res["pack_words"].update({f"narrow_{k}": narrow[k] for k in (
             "ms", "warm_ms", "plain_ms", "bound_ms", "event_ms", "bytes")})
 
     def wide_emissions():
-        v, n, _, _ = bt.plain_emissions(dd, wld, conc[0], gather=lut.lut_gather)
+        (e,) = lut.lut_gather_groups([(dd, 0)], conc)
+        v, n, _, _ = bt.plain_emissions(dd, wld, e)
         bt.pack_words_any(v, n)
-        v, n, _, _ = bt.run_emissions(dd, wld, rch[0].long(), sym_d[0], run_d[0],
-                                      gather=lut.lut_gather)
+        setup = bt.run_setup(dd, wld, rch[0].long())
+        sym_e, run_e = lut.lut_gather_groups([(dd, 0), (setup.index, 1)],
+                                             torch.stack([sym_d[0], run_d[0]]))
+        v, n, _, _ = bt.run_assemble(dd, setup, sym_e, run_e, run_d[0])
         bt.pack_words_any(v, n)
 
     edges = route_inputs(wide_emissions)
     lut_in, pack_in = emission_edges(dev, wide_len)
-    edges["lut_gather"] += [(x, conc[0]) for x in lut_in]
+    edges["lut_gather"] += lut_in
     edges["pack_words"] += pack_in
     for name in ("lut_gather", "pack_words"):
-        kern = getattr(lut, name)
         res[name]["max_abs_err"] = max([res[name]["max_abs_err"]] + [
-            _check_same(name, (kern(*a),), (twins[name](*a),)) for a in edges[name]])
-    log(f"[kernel] emission edges: lut_gather on every u8 and run index 0-255 and on "
-        f"the lookups of wide rows {tuple(d.shape)} ({runs}, type-2 escapes), pack_words "
-        f"on their emissions ({[tuple(a[0].shape) for a in edges['pack_words']]}: 0 slots, "
-        "all-zero widths, straddling 32-bit emissions) bit-identical to their twins")
+            _check_same(name, kerns[name](*a), twins[name](*a)) for a in edges[name]])
+    log(f"[kernel] emission edges: lut_gather on every u8 and run index 0-255 alone, on "
+        f"groups of 0 and 1 elements, unaligned views and u8 and int32 in one launch, on "
+        f"nine groups, and on the lookups of wide rows {tuple(d.shape)} ({runs}, type-2 "
+        f"escapes), pack_words on their emissions "
+        f"({[tuple(a[0].shape) for a in edges['pack_words']]}: 0 slots, all-zero widths, "
+        "straddling 32-bit emissions) bit-identical to their twins")
     return res
 
 
@@ -740,7 +783,7 @@ def route_counts(q, coding):
     n_em = len(widths) - n_fused
     n_run = sum(step_tables(coding)[4])
     return {"encode_plain": n_fused, "encode_run": n_fused if n_run else 0,
-            "pack_tags": len(widths), "lut_gather": n_em * (4 + n_run),
+            "pack_tags": len(widths), "lut_gather": n_em,
             "pack_words": n_em * (1 + (n_run > 0))}, n_fused, n_em
 
 
@@ -812,10 +855,12 @@ def encode_long_totals(long: bytes):
     one trace holds two encodes and the second one's device operations are
     counted; a trace that holds fewer launches of a kernel than the launch
     counters saw is taken again, up to three times, and the line says how
-    many it holds."""
+    many it holds.  K9 must have launched once per emission bucket."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
-    from dextractor_tpu_torch.codecs.qv_codec import encode_quiva_to_dexqv
+    from dextractor_tpu_torch.codecs.qv_codec import encode_buckets, encode_quiva_to_dexqv
+    from dextractor_tpu_torch.formats.quiva import parse_quiva
+    from dextractor_tpu_torch.ops.emit import fused_ok
     from dextractor_tpu_torch.utils import dispatch
 
     for _ in range(3):
@@ -844,6 +889,12 @@ def encode_long_totals(long: bytes):
     busy = sum(e.time_range.elapsed_us() for e in ev) / 1000
     log(f"[encode long] long-read batch, device time of each encode kernel (profiler, the "
         f"second of two encodes in one trace): {'; '.join(parts)}; all device ops {busy} ms")
+    # K9 takes every lookup of an emission bucket in one launch
+    n_em = sum(not fused_ok(w) for w, _ in encode_buckets(parse_quiva(long).lengths))
+    if launched["lut_gather"] != n_em:
+        raise AssertionError(f"the long-read encode launched lut_gather "
+                             f"{launched['lut_gather']} times, expected one per emission "
+                             f"bucket: {n_em}")
 
 
 def phase_encode_step(device, uniform: bytes, long: bytes):
@@ -1194,14 +1245,16 @@ def twobit_edge_reads(long_len: int = 70_000, seed: int = 17):
     return flat, lengths
 
 
-def _twobit_args(flat, lengths, table, device):
+def _twobit_args(flat, lengths, table, device, lead: int = 0):
     """(flat, offsets, out_offsets, table, n_out) of pack2bit on ``device``
-    for the flat reads ``flat`` of ``lengths``."""
+    for the flat reads ``flat[lead:]`` of ``lengths``: the reads' offsets
+    start at ``lead``, into the whole buffer."""
     import numpy as np
     import torch
 
-    offs = np.zeros(len(lengths) + 1, np.int64)
+    offs = np.full(len(lengths) + 1, lead, np.int64)
     np.cumsum(lengths, out=offs[1:])
+    offs[1:] += lead
     couts = np.zeros(len(lengths) + 1, np.int64)
     np.cumsum((lengths + 3) >> 2, out=couts[1:])
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -1221,26 +1274,28 @@ def _host_s(fn, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
-def phase_twobit_kernels(device, fasta: bytes, long_len: int = 70_000):
+def phase_twobit_kernels(device, cases, long_len: int = 70_000):
     """K7 (pack2bit) and the unpack against their twins on ``device``, on the
-    flat reads of ``fasta`` and on ``twobit_edge_reads(long_len)`` with every
-    table; on the card also their times at the corpus's shapes (see
+    flat reads of each corpus of ``cases`` ([(name, text, arrow)], the
+    uniform .fasta first), on ``twobit_edge_reads(long_len)`` and on
+    ``testing.twobit_tile_edges()`` with every table; on the card also K7's
+    times at each corpus's shapes and the unpack's at the first's (see
     ``measure``).  Returns {kernel: {max_abs_err, times...}}."""
     import numpy as np
     import torch
     from dextractor_tpu_torch.formats.fasta import parse_seq_file
     from dextractor_tpu_torch.ops import pack2bit as pk
     from dextractor_tpu_torch.ops import twobit as tb
+    from dextractor_tpu_torch.testing import twobit_tile_edges
 
     rng = np.random.default_rng(5)
     tables = {"base": tb.NUMBER_BASE_LUT, "arrow": tb.NUMBER_ARROW_LUT,
               "random": rng.integers(0, 4, 256).astype(np.uint8)}
     letters = {"lower": tb.LOWER_LUT, "upper": tb.UPPER_LUT, "arrow": tb.ARROW_LETTER_LUT}
-    f = parse_seq_file(fasta)
     res = {}
 
     def pack_twin(flat, offs, couts, lut, n_out):
-        return tb.pack2bit_twin(flat, offs.diff(), lut)
+        return tb.pack2bit_twin(flat[int(offs[0]):], offs.diff(), lut)
 
     def unpack_twin(pay, pay_offs, outs, lut, n_out):
         return tb.unpack2bit_twin(pay, outs.diff(), lut)
@@ -1254,23 +1309,32 @@ def phase_twobit_kernels(device, fasta: bytes, long_len: int = 70_000):
 
     def unpack_args(pargs, payload, letter_lut, n_letters):
         """unpack2bit's arguments for pack2bit's ``pargs`` and output: the
-        payload offsets are pack2bit's out_offsets and the other way round."""
-        return (payload, pargs[2], pargs[1],
+        payload offsets are pack2bit's out_offsets, the letters' offsets
+        pack2bit's offsets from 0."""
+        return (payload, pargs[2], pargs[1] - pargs[1][0],
                 torch.from_numpy(letter_lut).to(device), n_letters)
 
-    lengths = f.seqs.lengths.astype(np.int64)
-    n, n_sym = len(lengths), int(lengths.sum())
-    pargs = _twobit_args(f.seqs.flat, lengths, tb.NUMBER_BASE_LUT, device)
-    payload = check("pack2bit", pk.pack2bit, pack_twin, pargs)
-    uargs = unpack_args(pargs, payload, tb.LOWER_LUT, n_sym)
-    check("unpack2bit", pk.unpack2bit, unpack_twin, uargs)
-    log(f"[kernel] pack2bit, unpack2bit: {n} reads, {n_sym} bases, {pargs[4]} payload "
-        "bytes, bit-identical to their twins")
-    if on_card(device):
+    for i, (name, text, arrow) in enumerate(cases):
+        f = parse_seq_file(text, arrow=arrow)
+        lengths = f.seqs.lengths.astype(np.int64)
+        n, n_sym = len(lengths), int(lengths.sum())
+        table, letter = (tables["arrow"], letters["arrow"]) if arrow else (tables["base"],
+                                                                           letters["lower"])
+        pargs = _twobit_args(f.seqs.flat, lengths, table, device)
+        payload = check("pack2bit", pk.pack2bit, pack_twin, pargs)
+        uargs = unpack_args(pargs, payload, letter, n_sym)
+        check("unpack2bit", pk.unpack2bit, unpack_twin, uargs)
+        log(f"[kernel] pack2bit, unpack2bit: {name}, {n} reads, {n_sym} bases, {pargs[4]} "
+            "payload bytes, bit-identical to their twins")
+        if not on_card(device):
+            continue
         offsets = 2 * 8 * (n + 1)
-        res["pack2bit"].update(measure(
-            "pack2bit", lambda: pk.pack2bit(*pargs), lambda: pack_twin(*pargs),
-            n_sym + offsets + 256 + pargs[4]))
+        m = measure("pack2bit", lambda: pk.pack2bit(*pargs), lambda: pack_twin(*pargs),
+                    n_sym + offsets + 256 + pargs[4], label=f"pack2bit ({name})")
+        res["pack2bit"].update(m if i == 0 else {f"{name}_{k}": m[k] for k in (
+            "ms", "warm_ms", "plain_ms", "bound_ms", "event_ms", "bytes")})
+        if i:
+            continue
         res["unpack2bit"].update(measure(
             "unpack2bit", lambda: pk.unpack2bit(*uargs), lambda: unpack_twin(*uargs),
             pargs[4] + offsets + 4 + n_sym))
@@ -1290,6 +1354,14 @@ def phase_twobit_kernels(device, fasta: bytes, long_len: int = 70_000):
     log(f"[kernel] 2-bit edge reads (lengths {lengths.tolist()}, every byte value): "
         f"pack2bit with the {', '.join(tables)} tables and unpack2bit with the "
         f"{', '.join(letters)} letters bit-identical to their twins")
+    edges = twobit_tile_edges()
+    for label, flat, lengths, lead in edges:
+        for table in tables.values():
+            # the reads start ``lead`` bytes into the flat buffer on the device
+            pargs = _twobit_args(flat, lengths, table, device, lead)
+            check("pack2bit", pk.pack2bit, pack_twin, pargs)
+    log(f"[kernel] pack2bit tile edges ({'; '.join(e[0] for e in edges)}) with the "
+        f"{', '.join(tables)} tables bit-identical to its twin")
     return res
 
 
@@ -1450,7 +1522,7 @@ def main() -> int:
     phase_decode_step("cuda", encoded[0][3])
     phase_decode_long("cuda", encoded[-1][3])
     tcases = twobit_corpora()
-    res.update(phase_twobit_kernels("cuda", tcases[0][1]))
+    res.update(phase_twobit_kernels("cuda", tcases))
     t_launches, t_twins = phase_twobit_slice(True, tcases)
     _path_launches("2-bit", t_launches, t_twins, TWOBIT_KERNELS)
     launches.update({k: t_launches[k] for k in TWOBIT_KERNELS})

@@ -38,13 +38,13 @@ ARGTYPES = {
                        _P],
     "dxt_pack_tags": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _P, ctypes.c_uint, _P],
     "dxt_pack_words": [_P, _P, _P, _I, _LL, _P, ctypes.c_uint, _P],
-    "dxt_lut_gather": [_P, _I, _P, _P, _LL, _P],
+    "dxt_lut_gather": [_I, _P, _P, _P],
     "dxt_decode_plain": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P, _P,
                          _I, _LL, _P],
     "dxt_decode_run": [_P, _LL, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P,
                        _P, _I, _LL, _P],
     "dxt_expand_runs": [_P, _P, _LL, _I, _P, _LL, _P, _P, _I, _LL, _P],
-    "dxt_pack2bit": [_P, _P, _P, _P, _P, _LL, _P],
+    "dxt_pack2bit": [_P, _P, _P, _P, _P, _LL, _LL, _P],
     "dxt_unpack2bit": [_P, _P, _P, _P, _P, _LL, _P],
     "dxt_tag_route": [_P, _LL, _P, _P, _I, _LL, _I, _P],
 }

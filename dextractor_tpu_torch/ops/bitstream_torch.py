@@ -16,15 +16,19 @@ here a rectangle of streams (N, L) is encoded at once:
 ``encode_plain_ref`` and ``encode_run_ref`` compute exactly what the CUDA
 kernels K1 and K2 (ops/csrc/emit.cu) compute, with the same output shapes;
 the wrappers in ops/emit.py take them for tensors on the CPU.  The emission
-route of the encode step (parallel/pipeline.py) runs steps 1-3 here with
-its table lookups through K9 (``gather=ops.lut.lut_gather``) and packs
-through K8 (``pack_words_any``); the twins keep the plain lookup
-``lut_gather_plain``, so that they launch no kernel.  All bit
+route of the encode step (parallel/pipeline.py) runs steps 1-3 here in
+parts: ``run_setup`` (the runs), then every table lookup of the bucket in
+one K9 launch (``ops.lut.lut_gather_groups``), then ``plain_emissions`` and
+``run_assemble`` from the looked-up entries; it packs through K8
+(``pack_words_any``).  The twins look up with ``lut_gather_plain``, so that
+they launch no kernel.  All bit
 arithmetic is int64, because ``torch.uint32`` has no shifts or adds on the
 CPU; words are handed out as int32 tensors that hold u32 bit patterns.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -80,18 +84,20 @@ def _unpack(packed):
     return packed >> 6, (packed >> 1) & 31, (packed & 1) == 1
 
 
-def _sym_emissions(data, lut, gather):
-    """(value, width, granular width of the last part) per u8 symbol."""
-    bits, lens, esc = _unpack(gather(data, lut))
+def _sym_emissions(data, entries):
+    """(value, width, granular width of the last part) per u8 symbol from
+    its looked-up table entry."""
+    bits, lens, esc = _unpack(entries)
     v = torch.where(esc, (bits << 8) | data.long(), bits)
     n = torch.where(esc, lens + 8, lens)
     gran = torch.where(esc, 8, lens)
     return v, n, gran
 
 
-def _run_emission(run, lut, gather):
-    """Run code of min(run, 255); an escape appends run & 0xFFFF."""
-    bits, lens, esc = _unpack(gather(run.clamp(max=255).to(torch.int32), lut))
+def _run_emission(run, entries):
+    """Run code of min(run, 255) from its looked-up table entry; an escape
+    appends run & 0xFFFF."""
+    bits, lens, esc = _unpack(entries)
     v = torch.where(esc, (bits << 16) | (run & 0xFFFF), bits)
     n = torch.where(esc, lens + 16, lens)
     gran = torch.where(esc, 16, lens)
@@ -113,12 +119,12 @@ def _at(x, idx):
     return x.gather(1, idx[:, None])[:, 0]
 
 
-def plain_emissions(data, lengths, luts, gather=lut_gather_plain):
+def plain_emissions(data, lengths, entries):
     """Emissions of a non-RLE stream rectangle (N, L) u8: (v, n) of shape
-    (N, L) and (t, last_gran) of shape (N,), all int64.  ``gather(data,
-    lut)`` does the table lookups."""
+    (N, L) and (t, last_gran) of shape (N,), all int64.  ``entries`` are
+    the symbols' packed table entries, ``lut[data]`` (K9 on the card)."""
     _, _, ln, valid = _row_setup(data, lengths)
-    v, n, gran = _sym_emissions(data, luts, gather)
+    v, n, gran = _sym_emissions(data, entries)
     v = torch.where(valid, v, 0)
     n = torch.where(valid, n, 0)
     t = n.sum(1)
@@ -126,15 +132,20 @@ def plain_emissions(data, lengths, luts, gather=lut_gather_plain):
     return v, n, t, lg
 
 
-def run_emissions(data, lengths, rchar, sym_luts, run_luts, gather=lut_gather_plain):
-    """Emissions of an RLE stream rectangle (N, L) u8.
+class RunSetup(NamedTuple):
+    """The run-length part of an RLE rectangle's emissions (``run_setup``)."""
+    is_lit: torch.Tensor     # (N, L) bool: a valid position that is no rchar
+    run: torch.Tensor        # (N, L) int64: the run before each position
+    index: torch.Tensor      # (N, L) u8: min(run, 255), what the run table looks up
+    last_lit: torch.Tensor   # (N,) int64: the row's last literal, -1 for none
+    ln: torch.Tensor         # (N,) int64: the row's length, clamped to L
 
-    Slots [2i, 2i+1] hold the run and the literal emission of position i
-    (nonzero only where data[i] != rchar); slot 2L holds the trailing run.
-    The run before each literal comes from a running max of literal
-    positions (bitstream_jax.py:126-130).  ``gather(data, lut)`` does the
-    lookups of the symbols and of the runs before the literals; the
-    trailing run's, one per row, is a plain lookup, as in the JAX package."""
+
+def run_setup(data, lengths, rchar):
+    """The runs of an RLE stream rectangle (N, L) u8: its literals, and the
+    run before each position from a running max of literal positions
+    (bitstream_jax.py:126-130).  The runs are clamped to 255 for their
+    table lookups, so ``index`` is u8."""
     d, col, ln, valid = _row_setup(data, lengths)
     n_rows, l = d.shape
     is_lit = valid & (d != rchar)
@@ -146,16 +157,31 @@ def run_emissions(data, lengths, rchar, sym_luts, run_luts, gather=lut_gather_pl
         run_max = lit_pos
         last_lit = torch.full((n_rows,), -1, dtype=torch.long, device=d.device)
     prev_lit = torch.cat([torch.full_like(run_max[:, :1], -1), run_max[:, :-1]], 1)
-    rv, rn, _ = _run_emission(col - prev_lit - 1, run_luts, gather)
+    run = col - prev_lit - 1
+    return RunSetup(is_lit, run, run.clamp(max=255).to(torch.uint8), last_lit, ln)
+
+
+def run_assemble(data, setup, sym_entries, run_entries, run_luts):
+    """Emissions of an RLE stream rectangle (N, L) u8 from its ``run_setup``
+    and the looked-up entries of its symbols (``sym_lut[data]``) and runs
+    (``run_lut[setup.index]``).
+
+    Slots [2i, 2i+1] hold the run and the literal emission of position i
+    (nonzero only where data[i] != rchar); slot 2L holds the trailing run.
+    The trailing run's lookup, one per row, is a plain lookup in
+    ``run_luts``, as in the JAX package."""
+    is_lit, run, _, last_lit, ln = setup
+    n_rows, l = data.shape
+    rv, rn, _ = _run_emission(run, run_entries)
     rv = torch.where(is_lit, rv, 0)
     rn = torch.where(is_lit, rn, 0)
-    sv, sn, sgran = _sym_emissions(data, sym_luts, gather)
+    sv, sn, sgran = _sym_emissions(data, sym_entries)
     sv = torch.where(is_lit, sv, 0)
     sn = torch.where(is_lit, sn, 0)
 
     trail = (ln - last_lit - 1).clamp(min=0)
     has_trail = trail > 0
-    tv, tn, tgran = _run_emission(trail, run_luts, lut_gather_plain)
+    tv, tn, tgran = _run_emission(trail, lut_gather_plain(trail.clamp(max=255), run_luts))
     tv = torch.where(has_trail, tv, 0)
     tn = torch.where(has_trail, tn, 0)
 
@@ -165,6 +191,14 @@ def run_emissions(data, lengths, rchar, sym_luts, run_luts, gather=lut_gather_pl
     lit_gran = _at(sgran, last_lit.clamp(min=0))
     lg = torch.where(has_trail, tgran, torch.where(last_lit >= 0, lit_gran, 0))
     return v, n, t, lg
+
+
+def run_emissions(data, lengths, rchar, sym_luts, run_luts):
+    """Emissions of an RLE stream rectangle (N, L) u8, its lookups plain:
+    ``run_setup`` and ``run_assemble``."""
+    setup = run_setup(data, lengths, rchar)
+    return run_assemble(data, setup, lut_gather_plain(data, sym_luts),
+                        lut_gather_plain(setup.index, run_luts), run_luts)
 
 
 def pack_words(v, n, width: int):
@@ -229,7 +263,8 @@ def encode_plain_ref(data, lengths, sym_luts):
     c, n, l = data.shape
     parts = []
     for k in range(c):
-        v, nn, t, lg = plain_emissions(data[k], lengths, sym_luts[k])
+        v, nn, t, lg = plain_emissions(data[k], lengths,
+                                       lut_gather_plain(data[k], sym_luts[k]))
         parts.append((pack_words(v, nn, plain_width(l)), t, lg))
     return _stack_rows(parts, c, n, plain_width(l), data.device)
 

@@ -8,18 +8,27 @@
 //                     and ::lut_gather_pallas (one function, two formulations)
 //
 // K8 and K9 serve the emission route of the encode step (buckets that
-// emit.fused_ok sends past K1/K2): K9 looks up every symbol and run length
-// in a 256-entry table, plain PyTorch builds the (value, width) emission
-// planes from the entries (bitstream_torch.plain_emissions /
-// run_emissions), and K8 packs the planes into words.  K9 is one pass over
-// the flat elements with the 1 KB table in shared memory, four indices a
-// thread and step; an index is masked to its low byte, so an input outside
-// the function's domain [0, 256) reads the table and not past it.  K8
-// packs the emission planes into every word of its (N, M+1) output, zeros
-// past a row's last bit, with each row cut into tiles across blocks (see
-// pack_words_kernel).  Both are bound by bytes: K9 reads 1 (u8) or 4 (int32)
-// bytes and writes 4 per element, K8 reads 8 bytes a slot and writes 4 a
-// word.
+// emit.fused_ok sends past K1/K2): K9 looks up the symbols and the run
+// lengths in 256-entry tables, plain PyTorch builds the (value, width)
+// emission planes from the entries (bitstream_torch.plain_emissions /
+// run_assemble), and K8 packs the planes into words.  K9 takes every lookup
+// of a bucket in one launch: up to eight groups (the four symbol planes,
+// read straight from the stream rectangle, and the run planes of the RLE
+// channels, min(run, 255) as u8), each with its own table, passed by value
+// in the kernel's parameters.  Its grid is the tiles of all groups, 4,096
+// elements a block, assigned to groups by the exclusive prefix of their
+// tile counts (computed on the host); a block stages its group's 1 KB
+// table in shared memory and each thread looks up 16 elements (see
+// lut_gather_kernel).  An index is masked to its low byte, so an input
+// outside the function's domain [0, 256) reads the table and not past it.
+// K8 packs the emission planes into every word of its (N, M+1) output,
+// zeros past a row's last bit, with each row cut into tiles across blocks
+// (see pack_words_kernel).  Both are bound by bytes: K9 reads 1 (u8) or 4
+// (int32) bytes and writes 4 per element, K8 reads 8 bytes a slot and
+// writes 4 a word.  One launch of K9 a bucket, not one per lookup, is what
+// lets the widest long-read bucket's lookups (five of 491,520 symbols) fill
+// the card: the launch, the table fill and the tail were most of a
+// one-lookup launch's time (PERF.md, Findings).
 //
 // What they compute is the JAX package's XLA formulation, not its Pallas
 // bodies: bitstream_jax.plain_emissions / run_emissions + pack_words (the
@@ -1047,48 +1056,73 @@ __device__ __forceinline__ void load4(const int* p, long long q, int (&d)[4]) {
   d[0] = x.x; d[1] = x.y; d[2] = x.z; d[3] = x.w;
 }
 
-// K9: out[i] = lut[data[i] & 255] over `count` flat elements.  kVec: the
-// pointers are aligned for 4-element loads and 16-byte stores.
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-lut_gather_kernel(const T* __restrict__ data, const int* __restrict__ lut,
-                  int* __restrict__ out, long long count) {
-  __shared__ int s_lut[256];
-  for (int i = threadIdx.x; i < 256; i += kThreads) s_lut[i] = lut[i];
-  __syncthreads();
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  long long done = 0;
-  if (kVec) {
-    const long long quads = count >> 2;
-    for (long long q = first; q < quads; q += stride) {
-      int d[4];
-      load4(data, q, d);
-      reinterpret_cast<int4*>(out)[q] =
-          make_int4(s_lut[d[0] & 255], s_lut[d[1] & 255], s_lut[d[2] & 255],
-                    s_lut[d[3] & 255]);
+// K9: up to kLutGroups lookups in one launch.  Group g is
+// out_g[i] = luts[lut_g][data_g[i] & 255] over its count_g elements.
+constexpr int kLutGroups = 8;
+constexpr int kLutQuads = 4;                          // 4-element quads a thread
+constexpr int kLutTile = 4 * kLutQuads * kThreads;    // elements a block: 4,096
+
+struct LutGroup {
+  const void* data;
+  int* out;
+  long long count;
+  int is_u8;
+  int vec;     // data and out aligned for 4-element loads and 16-byte stores
+  int lut;     // row of the (G, 256) tables
+};
+
+struct LutGroups {             // passed by value: the kernel's parameters
+  LutGroup g[kLutGroups];
+  long long first[kLutGroups + 1];   // the groups' first blocks: exclusive prefix of their tiles
+  int n;
+};
+
+// One tile of a group, elements [lo, hi) with lo a multiple of kLutTile.  A
+// whole aligned tile: each thread loads its four quads first (a warp's load
+// is 128 contiguous bytes of u8 or 512 of int32), then stores them as four
+// 16-byte stores (512 contiguous bytes a warp); the tail tile, or a group
+// that is not aligned, one element a thread and step.
+template <typename T>
+__device__ __forceinline__ void lut_tile(const T* __restrict__ data, int* __restrict__ out,
+                                         long long lo, long long hi, bool vec,
+                                         const int* s_lut) {
+  if (vec && hi - lo == kLutTile) {
+    const long long q0 = (lo >> 2) + threadIdx.x;
+    int d[kLutQuads][4];
+#pragma unroll
+    for (int k = 0; k < kLutQuads; ++k) load4(data, q0 + k * kThreads, d[k]);
+#pragma unroll
+    for (int k = 0; k < kLutQuads; ++k) {
+      reinterpret_cast<int4*>(out)[q0 + k * kThreads] =
+          make_int4(s_lut[d[k][0] & 255], s_lut[d[k][1] & 255], s_lut[d[k][2] & 255],
+                    s_lut[d[k][3] & 255]);
     }
-    done = quads << 2;
+    return;
   }
-  for (long long i = done + first; i < count; i += stride) {
+  for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
     out[i] = s_lut[static_cast<int>(data[i]) & 255];
   }
 }
 
-template <typename T>
-int launch_lut_gather(const T* data, const int* lut, int* out, long long count,
-                      cudaStream_t stream) {
-  const bool vec = reinterpret_cast<uintptr_t>(data) % (4 * sizeof(T)) == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const long long per_block = 4LL * kThreads;
-  const long long blocks = (count + per_block - 1) / per_block;
-  const unsigned grid = static_cast<unsigned>(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096);
-  if (vec) {
-    lut_gather_kernel<T, true><<<grid, kThreads, 0, stream>>>(data, lut, out, count);
+// One block a tile of one group: block b belongs to the group g with
+// first[g] <= b < first[g + 1] (a group of 0 elements has no tile), and
+// stages only that group's 1 KB table in shared memory.
+__global__ void __launch_bounds__(kThreads)
+lut_gather_kernel(const LutGroups gs, const int* __restrict__ luts) {
+  __shared__ int s_lut[256];
+  const long long b = blockIdx.x;
+  int g = 0;
+  while (g + 1 < gs.n && gs.first[g + 1] <= b) ++g;
+  const LutGroup& grp = gs.g[g];
+  for (int i = threadIdx.x; i < 256; i += kThreads) s_lut[i] = luts[grp.lut * 256 + i];
+  __syncthreads();
+  const long long lo = (b - gs.first[g]) * kLutTile;
+  const long long hi = lo + kLutTile < grp.count ? lo + kLutTile : grp.count;
+  if (grp.is_u8) {
+    lut_tile(static_cast<const uint8_t*>(grp.data), grp.out, lo, hi, grp.vec, s_lut);
   } else {
-    lut_gather_kernel<T, false><<<grid, kThreads, 0, stream>>>(data, lut, out, count);
+    lut_tile(static_cast<const int*>(grp.data), grp.out, lo, hi, grp.vec, s_lut);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The tiles of a launch of K1, K2 or K3 over `rows` rows of `width`
@@ -1205,15 +1239,32 @@ extern "C" int dxt_pack_words(const void* v, const void* n, void* words, int n_r
   return static_cast<int>(cudaGetLastError());
 }
 
-// is_u8: data is uint8, else int32.
-extern "C" int dxt_lut_gather(const void* data, int is_u8, const void* lut, void* out,
-                              long long count, void* stream) {
-  if (count <= 0) return 0;
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (is_u8) {
-    return launch_lut_gather(static_cast<const uint8_t*>(data), static_cast<const int*>(lut),
-                             static_cast<int*>(out), count, st);
+// desc: n_groups (at most kLutGroups) records of five long longs, (data
+// pointer, 1 if data is uint8 else 0 for int32, row of luts, out pointer,
+// count); luts: (G, 256) int32.  One launch, the tiles of every group.
+extern "C" int dxt_lut_gather(int n_groups, const long long* desc, const void* luts,
+                              void* stream) {
+  if (n_groups <= 0 || n_groups > kLutGroups) return static_cast<int>(cudaErrorInvalidValue);
+  LutGroups gs{};
+  long long tiles = 0;
+  for (int g = 0; g < n_groups; ++g) {
+    const long long* d = desc + 5 * g;
+    LutGroup& grp = gs.g[g];
+    grp.data = reinterpret_cast<const void*>(d[0]);
+    grp.is_u8 = d[1] != 0;
+    grp.lut = static_cast<int>(d[2]);
+    grp.out = reinterpret_cast<int*>(d[3]);
+    grp.count = d[4] > 0 ? d[4] : 0;
+    grp.vec = static_cast<uint64_t>(d[0]) % (grp.is_u8 ? 4 : 16) == 0 &&
+              static_cast<uint64_t>(d[3]) % 16 == 0;
+    gs.first[g] = tiles;
+    tiles += (grp.count + kLutTile - 1) / kLutTile;
   }
-  return launch_lut_gather(static_cast<const int*>(data), static_cast<const int*>(lut),
-                           static_cast<int*>(out), count, st);
+  gs.first[n_groups] = tiles;
+  gs.n = n_groups;
+  if (tiles == 0) return 0;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  lut_gather_kernel<<<static_cast<unsigned>(tiles), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(gs, static_cast<const int*>(luts));
+  return static_cast<int>(cudaGetLastError());
 }

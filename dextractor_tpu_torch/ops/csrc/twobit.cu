@@ -19,49 +19,235 @@
 // their payloads end to end, read i's at out_offs[i], ceil(len/4) bytes,
 // offsets the host knows before the launch.  So no pad and no compaction
 // runs on either side, and a read's tail masks against the next read's
-// bases, which follow it directly.  One block owns one read and walks its
-// payload bytes with a block-stride loop, one byte a thread a step: the
-// thread reads the byte's four bases (or writes its up to four letters).
-// A read of length 0 has no payload and its block does nothing; the
-// wrapper launches no grid for a batch without payload.
+// bases, which follow it directly.
 //
 // Bound on the H100: by bytes, device memory: 1.25 bytes a base (one in, a
-// quarter out), a table lookup and a few shifts each.  The table sits in
-// shared memory (the letters of the unpack in a register).  Loads and
-// stores are single bytes; neighbouring threads touch neighbouring bytes,
-// so a warp's accesses fall into a few 128-byte lines.  Vector loads (16
-// bytes a thread) would need aligned starts that ragged reads do not have.
+// quarter out), a table lookup and a few shifts each.
+//
+// K7 (pack2bit_kernel) owns tiles of the flat payload, not reads, so that
+// every block has the same work whatever the reads' lengths: kPackTile
+// bytes a block, 16 a thread, written as one 16-byte store (the payload
+// comes from torch.empty, so every tile starts 16-byte aligned).  The block
+// finds the reads that hold its first and last byte (tile_reads: one round
+// of probes around each byte's read estimated from its position, with the
+// offsets it needs loaded at once, and a k-ary search of all reads where
+// the estimate misses).  The tile's bases are then one contiguous span of
+// the flat input, which the block loads with aligned 16-byte loads
+// (aligned down at the start, the last chunk past the span's end unused)
+// and turns into 2-bit codes as they arrive, one table lookup a base, 16
+// codes to a shared word, MSB-first.  Each thread finds the read of its
+// first byte by a binary search between the tile's two reads (read_at) and
+// takes four payload bytes of one read at a time with one funnel shift of
+// two code words; near a read's end it goes byte by byte, masks the codes
+// past the read and searches again where it crosses into a later read, so
+// runs of empty reads cost a search, not a step each.  The code words keep
+// a spare word after every 8, so that the lanes of a warp, whose windows
+// lie 4 words apart, meet at most two to a bank.  The byte table's entries
+// are read by a warp without conflict for the letters acgtACGT and 1234.
+// Staging the raw bases instead and looking them up while packing (four
+// lookups a payload byte) measured 1.2x slower (PERF.md).  The
+// unpack is still one block a read and one byte a thread a step, with
+// single-byte loads and stores.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;   // also the table's size: one entry a thread
+constexpr int kThreads = 256;
+constexpr int kPackBytes = 16;                         // payload bytes a thread
+constexpr int kPackTile = kPackBytes * kThreads;       // payload bytes a block: 4,096
+constexpr int kPackMinBlocks = 6;                      // resident blocks an SM (40 registers)
+constexpr int kSpanChunks = (4 * kPackTile + 15) / 16 + 1;   // 16-byte chunks of a tile's bases
+constexpr int kChunksPerThread = (kSpanChunks + kThreads - 1) / kThreads;
+constexpr int kCodeSlots = kSpanChunks + 2 + (kSpanChunks + 1) / 8;   // and a word past them, skewed
 
-__global__ void __launch_bounds__(kThreads)
+// Shared code word w of a staged span: a spare word after every 8.
+__device__ __forceinline__ int skew(int w) { return w + (w >> 3); }
+
+// ra and rb of tile_reads by a k-ary search with every thread of the block: a round
+// probes kThreads evenly spaced entries of each range and keeps the stretch
+// after the last probe that is <= its byte; ceil(log_256(n)) rounds.
+__device__ void kary_reads(const int64_t* __restrict__ ends, int64_t n, int64_t ja, int64_t jb,
+                           int64_t& ra, int64_t& rb) {
+  int64_t lo_a = 0, hi_a = n, lo_b = 0, hi_b = n;
+  while (hi_a - lo_a > 1 || hi_b - lo_b > 1) {
+    const int64_t sa = (hi_a - lo_a + kThreads - 1) / kThreads;
+    const int64_t sb = (hi_b - lo_b + kThreads - 1) / kThreads;
+    const int64_t pa = lo_a + threadIdx.x * sa;
+    const int64_t pb = lo_b + threadIdx.x * sb;
+    // probe 0 is the range's start, <= its byte by the loop's invariant
+    const int ca = __syncthreads_count(threadIdx.x == 0 || (pa < hi_a && ends[pa] <= ja));
+    const int cb = __syncthreads_count(threadIdx.x == 0 || (pb < hi_b && ends[pb] <= jb));
+    lo_a += (ca - 1) * sa;
+    hi_a = lo_a + sa < hi_a ? lo_a + sa : hi_a;
+    lo_b += (cb - 1) * sb;
+    hi_b = lo_b + sb < hi_b ? lo_b + sb : hi_b;
+  }
+  ra = lo_a;
+  rb = lo_b;
+}
+
+// The reads that hold bytes ja <= jb of a tile of a flat ragged output of
+// n_out bytes, with every thread of the block: ends (n+1) from 0 bounds the
+// reads' outputs (read i spans [ends[i], ends[i+1])), srcs (n+1) the reads'
+// inputs in their flat buffer, jb < ends[n].  ra and rb are the largest
+// reads with ends[r] <= ja and ends[r] <= jb, so never empty ones; the
+// tile's input span is span_lo = lo_of(ends[ra], srcs[ra]) to span_hi =
+// hi_of(ends[rb], srcs[rb], srcs[rb + 1]), the kernel's own rule.  A first
+// round probes kThreads reads from an estimate of each byte's read (its
+// share of n_out times n, less kThreads / 2), the probes loading srcs beside
+// ends, and the threads that hold ra and rb compute the span; where a
+// window does not hold its read (reads of uneven lengths), the k-ary
+// search.
+template <class Lo, class Hi>
+__device__ __forceinline__ void tile_reads(const int64_t* __restrict__ ends,
+                                           const int64_t* __restrict__ srcs, int64_t n,
+                                           int64_t n_out, int64_t ja, int64_t jb, Lo lo_of,
+                                           Hi hi_of, int64_t& ra, int64_t& rb, int64_t& span_lo,
+                                           int64_t& span_hi) {
+  __shared__ int64_t s_span[2];
+  const int64_t top = n > kThreads ? n - kThreads : 0;
+  auto window = [&](int64_t j) {
+    const int64_t g = static_cast<int64_t>(static_cast<double>(j) / static_cast<double>(n_out) *
+                                           static_cast<double>(n)) - kThreads / 2;
+    return g < 0 ? 0 : (g > top ? top : g);
+  };
+  const int64_t ga = window(ja), gb = window(jb);
+  const int64_t pa = ga + threadIdx.x, pb = gb + threadIdx.x;
+  int64_t ea = 0, sa = 0, eb = 0, sb = 0, sb1 = 0;
+  if (pa < n) { ea = ends[pa]; sa = srcs[pa]; }
+  if (pb < n) { eb = ends[pb]; sb = srcs[pb]; sb1 = srcs[pb + 1]; }
+  // the probes <= a byte are a prefix of its window; it holds the byte's read
+  // where that prefix is not empty and ends inside the window or at read n
+  const int ca = __syncthreads_count(pa < n && ea <= ja);
+  const int cb = __syncthreads_count(pb < n && eb <= jb);
+  if (ca >= 1 && (ca < kThreads || ga + kThreads >= n) &&
+      cb >= 1 && (cb < kThreads || gb + kThreads >= n)) {
+    if (threadIdx.x == ca - 1) s_span[0] = lo_of(ea, sa);
+    if (threadIdx.x == cb - 1) s_span[1] = hi_of(eb, sb, sb1);
+    __syncthreads();
+    ra = ga + ca - 1;
+    rb = gb + cb - 1;
+    span_lo = s_span[0];
+    span_hi = s_span[1];
+    return;
+  }
+  kary_reads(ends, n, ja, jb, ra, rb);
+  span_lo = lo_of(ends[ra], srcs[ra]);
+  span_hi = hi_of(ends[rb], srcs[rb], srcs[rb + 1]);
+}
+
+// The read that holds byte j: the largest r in [lo, hi] with ends[r] <= j
+// (ends[lo] <= j).
+__device__ __forceinline__ int64_t read_at(const int64_t* __restrict__ ends, int64_t lo,
+                                           int64_t hi, int64_t j) {
+  while (lo < hi) {
+    const int64_t mid = (lo + hi + 1) >> 1;
+    if (ends[mid] <= j) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kThreads, kPackMinBlocks)
 pack2bit_kernel(const uint8_t* __restrict__ flat, const int64_t* __restrict__ offs,
                 const int64_t* __restrict__ out_offs, const uint8_t* __restrict__ lut,
-                uint8_t* __restrict__ out) {
-  __shared__ uint8_t s_lut[256];
-  s_lut[threadIdx.x] = lut[threadIdx.x];
-  __syncthreads();
-  const int64_t r = blockIdx.x;
-  const int64_t in0 = offs[r];
-  const int64_t len = offs[r + 1] - in0;
-  const int64_t nbytes = (len + 3) >> 2;
-  const uint8_t* src = flat + in0;
-  uint8_t* dst = out + out_offs[r];
-  for (int64_t j = threadIdx.x; j < nbytes; j += kThreads) {
-    const int64_t p = 4 * j;
-    uint32_t b = 0;
+                uint8_t* __restrict__ out, int64_t n_reads, int64_t n_out) {
+  __shared__ uint8_t s_tab[256];
+  __shared__ uint32_t s_code[kCodeSlots];   // code of staged base p: word p >> 4, bits 31 - 2(p & 15)
+  const int64_t j0 = static_cast<int64_t>(blockIdx.x) * kPackTile;
+  const int64_t j1 = j0 + kPackTile < n_out ? j0 + kPackTile : n_out;
+  for (int i = threadIdx.x; i < 256; i += kThreads) s_tab[i] = lut[i] & 3u;
+  // the tile's bases, flat[in_lo, in_hi), staged from in_lo aligned down;
+  // tile_reads' barriers also publish the table
+  int64_t ra, rb, in_lo, in_hi;
+  tile_reads(
+      out_offs, offs, n_reads, n_out, j0, j1 - 1,
+      [j0](int64_t end, int64_t src) { return src + 4 * (j0 - end); },
+      [j1](int64_t end, int64_t src, int64_t src1) {
+        const int64_t hi = src + 4 * (j1 - end);
+        return hi < src1 ? hi : src1;
+      },
+      ra, rb, in_lo, in_hi);
+  const int64_t origin = in_lo - static_cast<int64_t>(reinterpret_cast<uintptr_t>(flat + in_lo) & 15);
+  const int n_chunks = static_cast<int>((in_hi - origin + 15) >> 4);
+  const uint4* src = reinterpret_cast<const uint4*>(flat + origin);
+  uint4 v[kChunksPerThread];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      // codes at or past the read's length are 0 (DB.c:329-331): the bytes
-      // there are the next read's bases and are never read
-      if (p + k < len) b |= static_cast<uint32_t>(s_lut[src[p + k]]) << (6 - 2 * k);
+  for (int k = 0; k < kChunksPerThread; ++k) {
+    const int c = threadIdx.x + k * kThreads;
+    if (c < n_chunks) v[k] = src[c];
+  }
+#pragma unroll
+  for (int k = 0; k < kChunksPerThread; ++k) {
+    const int c = threadIdx.x + k * kThreads;
+    if (c < n_chunks) {
+      const uint32_t q[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+      uint32_t acc = 0;
+#pragma unroll
+      for (int b = 0; b < 16; ++b) acc = acc * 4 + s_tab[(q[b >> 2] >> (8 * (b & 3))) & 255];
+      s_code[skew(c)] = acc;
     }
-    dst[j] = static_cast<uint8_t>(b);
+  }
+  __syncthreads();
+  const int jt = kPackBytes * threadIdx.x;   // the thread's first byte in the tile
+  if (j0 + jt >= j1) return;
+  const int nb = j1 - j0 - jt < kPackBytes ? static_cast<int>(j1 - j0 - jt) : kPackBytes;
+  const int span_end = static_cast<int>(in_hi - origin);
+  // read r, in staged bases: x0 the first base of its (maybe virtual) byte
+  // j0, lim its end (at most the span's); e its end in the tile's bytes
+  int x0, lim, e;
+  auto bounds = [&](int64_t r) {
+    const int64_t o = out_offs[r], o1 = out_offs[r + 1], b1 = offs[r + 1] - origin;
+    x0 = static_cast<int>(offs[r] - origin - 4 * (o - j0));
+    lim = b1 < span_end ? static_cast<int>(b1) : span_end;
+    e = static_cast<int>((o1 < j1 ? o1 : j1) - j0);
+  };
+  int64_t r = read_at(out_offs, ra, rb, j0 + jt);
+  bounds(r);
+  int x = x0 + 4 * jt;
+  // the 16 codes from staged base p on, MSB-first: four payload bytes
+  auto codes16 = [&](int p) {
+    const int c = p >> 4;
+    return __funnelshift_l(s_code[skew(c + 1)], s_code[skew(c)], 2 * (p & 15));
+  };
+  uint32_t w[kPackBytes / 4];
+#pragma unroll
+  for (int g = 0; g < kPackBytes / 4; ++g) {
+    if (4 * g + 4 <= nb && x + 16 <= lim) {   // four bytes of one read
+      w[g] = __byte_perm(codes16(x), 0u, 0x0123);
+      x += 16;
+    } else {
+      uint32_t acc = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = 4 * g + k;
+        if (i < nb) {
+          if (jt + i >= e) {   // the next read that is not empty
+            r = read_at(out_offs, r + 1, rb, j0 + jt + i);
+            bounds(r);
+            x = x0 + 4 * (jt + i);
+          }
+          uint32_t b = codes16(x) >> 24;
+          const int left = lim - x;   // bases of the read from x on, >= 1
+          // codes at or past the read's length are 0 (DB.c:329-331)
+          if (left < 4) b &= (0xff00u >> (2 * left)) & 0xffu;
+          acc |= b << (8 * k);
+          x += 4;
+        }
+      }
+      w[g] = acc;
+    }
+  }
+  uint8_t* dst = out + j0 + jt;
+  if (nb == kPackBytes) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    for (int i = 0; i < nb; ++i) dst[i] = static_cast<uint8_t>(w[i >> 2] >> (8 * (i & 3)));
   }
 }
 
@@ -94,15 +280,20 @@ unpack2bit_kernel(const uint8_t* __restrict__ payload, const int64_t* __restrict
 
 // flat: the reads' ascii bases; offs (n_reads + 1) int64: read i is
 // flat[offs[i], offs[i+1]); out_offs (n_reads + 1) int64: the exclusive
-// cumsum of ceil(len/4), where read i's payload goes; lut (256) u8.
+// cumsum of ceil(len/4) from 0, where read i's payload goes; lut (256) u8
+// codes 0-3; out: n_out = out_offs[n_reads] bytes, 16-byte aligned.
 extern "C" int dxt_pack2bit(const void* flat, const void* offs, const void* out_offs,
-                            const void* lut, void* out, long long n_reads, void* stream) {
-  if (n_reads <= 0) return 0;
-  pack2bit_kernel<<<static_cast<unsigned>(n_reads), kThreads, 0,
+                            const void* lut, void* out, long long n_reads, long long n_out,
+                            void* stream) {
+  if (n_reads <= 0 || n_out <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (n_out + kPackTile - 1) / kPackTile;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  pack2bit_kernel<<<static_cast<unsigned>(tiles), kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(flat), static_cast<const int64_t*>(offs),
       static_cast<const int64_t*>(out_offs), static_cast<const uint8_t*>(lut),
-      static_cast<uint8_t*>(out));
+      static_cast<uint8_t*>(out), n_reads, n_out);
   return static_cast<int>(cudaGetLastError());
 }
 

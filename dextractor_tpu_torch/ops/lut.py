@@ -1,18 +1,20 @@
 """Wrappers of the CUDA kernels of the encode step's emission route
-(ops/csrc/emit.cu): K9 ``lut_gather``, the 256-entry table lookup of every
-symbol and run length, and K8 ``pack_words``, which packs emission planes
-into words.  The route runs where ``emit.fused_ok`` sends a bucket past K1
-and K2 (parallel/pipeline.py).
+(ops/csrc/emit.cu): K9 ``lut_gather``, the 256-entry table lookups of the
+symbols and run lengths, all of a bucket in one launch, and K8
+``pack_words``, which packs emission planes into words.  The route runs
+where ``emit.fused_ok`` sends a bucket past K1 and K2 (parallel/pipeline.py).
 
 As the wrappers of ops/emit.py, each checks device, dtype, shape and
 contiguity, allocates its output, launches on ``torch.cuda.current_stream()``,
 raises on a non-zero ``cudaError_t`` and counts the launch in
 ``utils.dispatch.LAUNCHES``.  A tensor on the CPU goes to the kernel's plain
-twin (``lut_gather_ref``, ``pack_words_ref``); a tensor on a CUDA device goes
-to the kernel or the wrapper raises: nothing falls back.
+twin (``lut_gather_groups_ref``, ``pack_words_ref``); a tensor on a CUDA
+device goes to the kernel or the wrapper raises: nothing falls back.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -23,36 +25,67 @@ from .emit import _check, _launch, _route, tile_scratch
 _MAX_ROWS = (1 << 31) - 1     # rows are the grid's x dimension
 PACK_TILE = 4096              # slots per K8 tile (kTile in emit.cu)
 _MAX_SLOTS = 1 << 27          # K8 counts a row's bits in 32 bits
+LUT_GROUPS = 8                # lookups per K9 launch, at most (kLutGroups in emit.cu)
+
+
+def _check_data(name, data, dev):
+    if not isinstance(data, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(data).__name__}")
+    if data.dtype not in (torch.uint8, torch.int32):
+        raise TypeError(f"{name}: expected torch.uint8 or torch.int32, got {data.dtype}")
+    _check(name, data, data.dtype, data.shape, dev)
+
+
+def lut_gather_groups(groups, luts):
+    """K9 and K9b over several lookups: ``luts[k][data]`` as int32 of
+    ``data``'s shape for each ``(data, k)`` of ``groups``, one launch for
+    every eight groups (one a bucket on the encode's emission route).
+
+    data: any shape, uint8 or int32 (the route's symbol planes and its run
+    planes ``min(run, 255)``); luts: (G, 256) int32, k in [0, G).  The
+    function's domain is [0, 256).  Outside it the two Pallas kernels
+    disagree (lut_gather_lane returns ``lut[128 + (d & 127)]``,
+    lut_gather_pallas 0), the kernel returns ``lut[d & 255]`` and the twin
+    raises or wraps, so no caller passes such an index.  A group of 0
+    elements gets an empty output and no tile; a launch with no element is
+    not made."""
+    if not isinstance(luts, torch.Tensor) or luts.dim() != 2:
+        raise ValueError("luts: expected a (G, 256) tensor")
+    dev = luts.device
+    _check("luts", luts, torch.int32, (luts.shape[0], 256), dev)
+    for i, (data, k) in enumerate(groups):
+        _check_data(f"groups[{i}] data", data, dev)
+        if not 0 <= int(k) < luts.shape[0]:
+            raise ValueError(f"groups[{i}]: table {k} of {luts.shape[0]}")
+    if not _route(luts):
+        return lut_gather_groups_ref(groups, luts)
+    outs = [torch.empty(data.shape, dtype=torch.int32, device=dev) for data, _ in groups]
+    todo = [(data, int(k), out) for (data, k), out in zip(groups, outs) if data.numel()]
+    for s in range(0, len(todo), LUT_GROUPS):
+        part = todo[s:s + LUT_GROUPS]
+        desc = (ctypes.c_longlong * (5 * len(part)))(*[
+            x for data, k, out in part
+            for x in (data.data_ptr(), int(data.dtype == torch.uint8), k, out.data_ptr(),
+                      data.numel())])
+        _launch("lut_gather", dispatch.kernels().dxt_lut_gather, len(part),
+                ctypes.addressof(desc), luts)
+    return outs
+
+
+def lut_gather_groups_ref(groups, luts):
+    """The plain twin of K9: ``bitstream_torch.lut_gather_plain`` per group,
+    one twin call a call."""
+    dispatch.TWIN_CALLS["lut_gather"] += 1
+    return [bt.lut_gather_plain(data, luts[int(k)]) for data, k in groups]
 
 
 def lut_gather(data, lut):
-    """K9 and K9b: ``lut[data]`` as int32 of ``data``'s shape.
-
-    data: any shape, uint8 or int32 (the two callers: u8 symbols, and run
-    lengths ``min(run, 255)`` as int32); lut: (256,) int32.  The function's
-    domain is [0, 256).  Outside it the two Pallas kernels disagree
-    (lut_gather_lane returns ``lut[128 + (d & 127)]``, lut_gather_pallas 0),
-    the kernel returns ``lut[d & 255]`` and the twin raises or wraps, so no
-    caller passes such an index."""
-    if not isinstance(data, torch.Tensor):
-        raise TypeError(f"data: expected a tensor, got {type(data).__name__}")
-    if data.dtype not in (torch.uint8, torch.int32):
-        raise TypeError(f"data: expected torch.uint8 or torch.int32, got {data.dtype}")
-    _check("data", data, data.dtype, data.shape, data.device)
+    """K9 on one lookup: ``lut[data]`` as int32 of ``data``'s shape, data
+    uint8 or int32, lut (256,) int32 (the one-group case of
+    ``lut_gather_groups``)."""
+    _check_data("data", data, getattr(data, "device", None))
     _check("lut", lut, torch.int32, (256,), data.device)
-    if not _route(data):
-        return lut_gather_ref(data, lut)
-    out = torch.empty(data.shape, dtype=torch.int32, device=data.device)
-    if data.numel():
-        _launch("lut_gather", dispatch.kernels().dxt_lut_gather, data,
-                int(data.dtype == torch.uint8), lut, out, data.numel())
-    return out
-
-
-def lut_gather_ref(data, lut):
-    """The plain twin of K9."""
-    dispatch.TWIN_CALLS["lut_gather"] += 1
-    return bt.lut_gather_plain(data, lut)
+    return lut_gather_groups([(data, 0)], lut[None])[0]
 
 
 def pack_words(v, n):

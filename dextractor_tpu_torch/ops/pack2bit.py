@@ -20,7 +20,7 @@ from ..utils import dispatch
 from . import twobit as tb
 from .emit import _check, _launch, _route
 
-_MAX_READS = (1 << 31) - 1   # one block a read, the grid's x dimension
+_MAX_READS = (1 << 31) - 1   # the unpack: one block a read, the grid's x dimension
 
 
 def _check_offsets(name, offs, dev):
@@ -44,10 +44,11 @@ def pack2bit(flat, offsets, out_offsets, lut, n_out: int):
 
     flat (T,) u8 ascii bases; offsets (N+1,) i64, read i being
     flat[offsets[i]:offsets[i+1]]; out_offsets (N+1,) i64, the exclusive
-    cumsum of ceil(len/4) from 0; lut (256,) u8 codes 0..3; n_out =
-    out_offsets[N], the payload bytes (given, so no host sync reads it).
-    Returns the payloads end to end, (n_out,) u8: four codes a byte, first in
-    bits 7-6, codes past a read's length 0."""
+    cumsum of ceil(len/4) from 0; lut (256,) u8 codes 0..3 (the kernel
+    keeps each entry's low two bits); n_out = out_offsets[N], the payload
+    bytes (given, so no host sync reads it; the kernel's grid is its tiles
+    of 4,096 bytes).  Returns the payloads end to end, (n_out,) u8: four
+    codes a byte, first in bits 7-6, codes past a read's length 0."""
     dev = _check_flat("flat", flat)
     n = _check_offsets("offsets", offsets, dev)
     _check_offsets("out_offsets", out_offsets, dev)
@@ -60,7 +61,7 @@ def pack2bit(flat, offsets, out_offsets, lut, n_out: int):
     out = torch.empty(n_out, dtype=torch.uint8, device=dev)
     if n and n_out:
         _launch("pack2bit", dispatch.kernels().dxt_pack2bit,
-                flat, offsets, out_offsets, lut, out, n)
+                flat, offsets, out_offsets, lut, out, n, n_out)
     return out
 
 

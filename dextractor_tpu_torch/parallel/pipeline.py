@@ -6,8 +6,9 @@ four QV channels take one of two routes, chosen by the row width with the
 JAX package's rule (``ops.emit.fused_ok``): ``channels_fused``, the plain
 channels through K1 (ops.emit.encode_plain) and the RLE channels through K2
 (ops.emit.encode_run), or ``channels_emissions``, the emission planes in
-plain PyTorch with their table lookups through K9 (ops.lut.lut_gather) and
-the packing through K8 (ops.lut.pack_words).  The delTag channel goes
+plain PyTorch with all their table lookups in one K9 launch
+(ops.lut.lut_gather_groups) and the packing through K8
+(ops.lut.pack_words).  The delTag channel goes
 through K3 (ops.emit.pack_tags) on both routes.  On the CPU each wrapper
 takes its kernel's plain twin; ``_pack_tags`` here is K3's twin.  The
 sharded functions of the JAX module wait for the multi-GPU port.
@@ -77,10 +78,13 @@ def channels_fused(streams, lengths, sym_luts, run_luts, rchars, run_on):
 
 def channels_emissions(streams, lengths, sym_luts, run_luts, rchars, run_on):
     """The four QV channels as emission planes (the JAX package's
-    non-fused branch, ``pipeline.py:131-176``): per channel
-    ``plain_emissions`` or ``run_emissions`` with their lookups through K9,
-    then one K8 launch per slot width, the channels folded into its rows.
-    Returns what ``channels_fused`` returns, of the same shapes."""
+    non-fused branch, ``pipeline.py:131-176``): the runs of the RLE
+    channels (``run_setup``), then one K9 launch for every table lookup of
+    the bucket (the four symbol planes, read from ``streams`` in place, and
+    the RLE channels' run planes), then per channel ``plain_emissions`` or
+    ``run_assemble``, then one K8 launch per slot width, the channels folded
+    into its rows.  Returns what ``channels_fused`` returns, of the same
+    shapes."""
     run_cs, plain_cs = _split(run_on)
 
     def pack(parts):
@@ -90,13 +94,17 @@ def channels_emissions(streams, lengths, sym_luts, run_luts, rchars, run_on):
         words = bt.pack_words_any(v.reshape(c * rows, m), n.reshape(c * rows, m))
         return words.reshape(c, rows, m + 1), t.to(torch.int32), lg.to(torch.int32)
 
-    p = pack([bt.plain_emissions(streams[PLANE[c]], lengths, sym_luts[c],
-                                 gather=lut.lut_gather) for c in plain_cs])
+    planes = [streams[PLANE[c]] for c in range(4)]
+    setups = [bt.run_setup(planes[c], lengths, rchars[c].long()) for c in run_cs]
+    entries = lut.lut_gather_groups(
+        [(planes[c], c) for c in range(4)]
+        + [(s.index, 4 + j) for j, s in enumerate(setups)],
+        torch.cat([sym_luts, run_luts[run_cs]]))
+    p = pack([bt.plain_emissions(planes[c], lengths, entries[c]) for c in plain_cs])
     r = None
     if run_cs:
-        r = pack([bt.run_emissions(streams[PLANE[c]], lengths, rchars[c].long(),
-                                   sym_luts[c], run_luts[c], gather=lut.lut_gather)
-                  for c in run_cs])
+        r = pack([bt.run_assemble(planes[c], s, entries[c], entries[4 + j], run_luts[c])
+                  for j, (c, s) in enumerate(zip(run_cs, setups))])
     return _mix(run_cs, plain_cs, r, p)
 
 

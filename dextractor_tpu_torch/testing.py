@@ -573,6 +573,34 @@ def encode_edge_rows(width: int = 9000):
              np.minimum(lengths, w - 5).astype(np.int32), luts(["lmax16"]))]
 
 
+PACK_TILE_BYTES = 4096   # payload bytes per K7 block (kPackTile in ops/csrc/twobit.cu)
+
+
+def twobit_tile_edges(tile: int = PACK_TILE_BYTES, seed: int = 23):
+    """Edge inputs of K7's payload tiles of ``tile`` bytes, NumPy: (label,
+    flat u8 random bytes, lengths (N,) i64, lead): the reads are
+    ``flat[lead:]`` end to end, so that their first base lies ``lead``
+    bytes into the buffer (off 16-byte alignment where ``lead`` is no
+    multiple of 16).  Reads of 0-7 bases; thousands of empty reads inside
+    one tile; reads that end exactly at tile boundaries; a read longer than
+    two tiles; many short reads a tile."""
+    rng = np.random.default_rng(seed)
+    b = 4 * tile    # the bases of a tile of 4-base bytes
+    cases = [
+        ("reads of 0-7 bases", np.tile(np.arange(8), 40), 0),
+        ("runs of thousands of empty reads inside a tile",
+         np.array([5] + [0] * 3000 + [9, 0, 0, 13] + [0] * 2000 + [4]), 0),
+        ("reads that end at tile boundaries", np.array([b, 4, b - 4, 2 * b, 3]), 0),
+        ("a read longer than two tiles", np.array([3, 2 * b + 777, 5, 1]), 0),
+        ("many short reads a tile, the first base 5 bytes into the buffer",
+         rng.integers(0, 40, 2000), 5),
+        ("reads of ~2,000 bases, the first base 13 bytes into the buffer",
+         rng.integers(1950, 2051, 2 * tile // 500 + 3), 13),
+    ]
+    return [(label, rng.integers(0, 256, lead + int(lengths.sum()), dtype=np.uint8),
+             lengths.astype(np.int64), lead) for label, lengths, lead in cases]
+
+
 EDGE_RCHAR = 102   # 'f': the run character (delChar) of run_edge_rows
 
 

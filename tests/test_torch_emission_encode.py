@@ -1,8 +1,9 @@
-"""The encode step's emission route: the plain twins of K9 (lut_gather) and
-K8 (pack_words) against the JAX package's Pallas kernels in interpret mode
-and its XLA formulations, the port's qv_encode_step on buckets that
-``fused_ok`` sends past K1/K2 against the JAX package's step, and a file
-with reads over 8,192 symbols.  Integer codec: every comparison is exact.
+"""The encode step's emission route: the plain twins of K9 (lut_gather and
+its grouped form lut_gather_groups) and K8 (pack_words) against the JAX
+package's Pallas kernels in interpret mode and its XLA formulations, the
+port's qv_encode_step on buckets that ``fused_ok`` sends past K1/K2 against
+the JAX package's step, and a file with reads over 8,192 symbols.  Integer
+codec: every comparison is exact.
 """
 
 import jax.numpy as jnp
@@ -52,6 +53,32 @@ def test_lut_gather_twin_matches_pallas(dtype):
         assert np.array_equal(got.numpy(), np.asarray(ref))
 
 
+def test_lut_gather_groups_twin_matches_pallas():
+    """One call of the grouped wrapper on the CPU (its twin, one twin call)
+    over groups of both dtypes, each with its own table, among them a group
+    of 0 elements, one of one element and a view one element into its
+    buffer, against both Pallas kernels (interpret mode), group by group."""
+    rng = np.random.default_rng(3)
+    tables = np.stack([_table(seed) for seed in range(4)])
+    u8 = rng.integers(0, 256, (3, 300)).astype(np.uint8)
+    u8[0, :256] = np.arange(256)
+    i32 = torch.from_numpy(rng.integers(0, 256, 513).astype(np.int32))
+    groups = [(torch.from_numpy(u8), 2), (i32[1:], 0), (torch.zeros(0, dtype=torch.uint8), 1),
+              (torch.tensor([255], dtype=torch.int32), 3), (torch.from_numpy(u8[2]), 0)]
+    dispatch.reset_counts()
+    got = lut.lut_gather_groups(groups, torch.from_numpy(tables))
+    assert dispatch.TWIN_CALLS["lut_gather"] == 1 and not any(dispatch.LAUNCHES.values())
+    assert len(got) == len(groups)
+    for (data, k), out in zip(groups, got):
+        assert out.dtype == torch.int32 and out.shape == data.shape
+        if not data.numel():
+            continue
+        jd, jt = jnp.asarray(data.numpy()), jnp.asarray(tables[k])
+        for ref in (lut_gather_lane(jd, jt, interpret=True),
+                    lut_gather_pallas(jd, jt, interpret=True)):
+            assert np.array_equal(out.numpy(), np.asarray(ref))
+
+
 def test_lut_gather_rejects_what_the_kernel_does_not_take():
     table = torch.from_numpy(_table())
     with pytest.raises(TypeError):
@@ -60,6 +87,13 @@ def test_lut_gather_rejects_what_the_kernel_does_not_take():
         lut.lut_gather(torch.zeros(4, dtype=torch.uint8), table[:128])
     with pytest.raises(TypeError):
         lut.lut_gather(torch.zeros(4, dtype=torch.uint8), table.long())
+    tables = table[None].contiguous()
+    with pytest.raises(ValueError):
+        lut.lut_gather_groups([(torch.zeros(4, dtype=torch.uint8), 1)], tables)
+    with pytest.raises(TypeError):
+        lut.lut_gather_groups([(torch.zeros(4, dtype=torch.int16), 0)], tables)
+    with pytest.raises(ValueError):
+        lut.lut_gather_groups([(torch.zeros(4, dtype=torch.uint8), 0)], table)
 
 
 def _emissions(kind, n_rows=9, m=300, seed=2):
@@ -113,14 +147,15 @@ def test_fused_ok_matches_reference():
 def test_emission_step_matches_reference(width, run_on):
     """The port's qv_encode_step at widths that fused_ok refuses, against the
     JAX package's (whose CPU path is its XLA emissions + pack_words); the
-    route taken shows in the twin counts."""
+    route taken shows in the twin counts: one grouped lookup (K9's twin) for
+    every lookup of the bucket."""
     args, _ = ge._example_batch(n_entries=8, length=width)
     ref = [np.asarray(x) for x in jax_step(*args, run_on=run_on)[:7]]
     dispatch.reset_counts()
     got = [x.numpy() for x in tp.qv_encode_step(*args, run_on=run_on)]
     n_run = sum(run_on)
     assert dispatch.TWIN_CALLS["encode_plain"] == dispatch.TWIN_CALLS["encode_run"] == 0
-    assert dispatch.TWIN_CALLS["lut_gather"] == 4 + n_run
+    assert dispatch.TWIN_CALLS["lut_gather"] == 1
     assert dispatch.TWIN_CALLS["pack_words"] == 1 + (n_run > 0)
     assert dispatch.TWIN_CALLS["pack_tags"] == 1
     assert got[0].shape == ref[0].shape

@@ -141,11 +141,11 @@ assert decode_dexta_to_fasta(encode_fasta_to_dexta(fa, device="cpu"), device=Fal
 open({fpath!r}, "wb").write(fa)
 assert main(["dexta", "-k", {fpath!r}]) == 0
 assert main(["undexta", "-v", "-w60", {dpath!r}]) == 0
-chip_smoke.phase_twobit_kernels("cpu", fa, long_len=600)
-chip_smoke.phase_twobit_slice("cpu", [
-    ("uniform_fasta", fa, False),
-    ("long_fasta", make_fasta(np.random.default_rng(2), lengths=[2100, 0, 700]), False),
-    ("uniform_arrow", make_arrow(np.random.default_rng(0), n_reads=20), True)])
+tcases = [("uniform_fasta", fa, False),
+          ("long_fasta", make_fasta(np.random.default_rng(2), lengths=[2100, 0, 700]), False),
+          ("uniform_arrow", make_arrow(np.random.default_rng(0), n_reads=20), True)]
+chip_smoke.phase_twobit_kernels("cpu", tcases, long_len=600)
+chip_smoke.phase_twobit_slice("cpu", tcases)
 print(sorted(m for m in sys.modules if m in ("jax", "dextractor_tpu")
              or m.startswith(("jax.", "dextractor_tpu."))))
 """
@@ -158,6 +158,7 @@ print(sorted(m for m in sys.modules if m in ("jax", "dextractor_tpu")
     assert "[decode] long_reads (per_read route)" in r.stdout
     assert "1 through K9/K8" in r.stdout
     assert "[2-bit] uniform_arrow" in r.stdout
+    assert "pack2bit tile edges" in r.stdout
     assert "equals the TAG rows of its full decode" in r.stdout
     assert "ABLATE: " in r.stdout and "[ablate] launches" in r.stdout
 

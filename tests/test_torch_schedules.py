@@ -1,12 +1,14 @@
-"""NumPy models of the work schedules of six CUDA kernels, which cannot run
-on this host: K8 ``pack_words`` as tiles of a row across blocks with a
-decoupled look-back, and K1 ``encode_plain``, K2 ``encode_run`` and K3
-``pack_tags`` as warps over tiles of a row chained by the same look-back
-(ops/csrc/emit.cu); K5 ``decode_run`` and K4
-``decode_plain`` as one warp per chain, whose lanes speculate, synchronise,
-scan and write (ops/csrc/decode.cu).  Each
-model follows its kernel step by step at small tile and lane sizes and is
-held against the kernel's plain twin."""
+"""NumPy models of the work schedules of eight CUDA kernels, which cannot
+run on this host: K8 ``pack_words`` as tiles of a row across blocks with a
+decoupled look-back, K1 ``encode_plain``, K2 ``encode_run`` and K3
+``pack_tags`` as warps over tiles of a row chained by the same look-back,
+and K9 ``lut_gather`` as the tiles of up to eight lookups in one grid
+(ops/csrc/emit.cu); K5 ``decode_run`` and K4 ``decode_plain`` as one warp
+per chain, whose lanes speculate, synchronise, scan and write
+(ops/csrc/decode.cu); K7 ``pack2bit`` as tiles of the flat payload, each
+finding its reads by a search and staging its bases from an aligned start
+(ops/csrc/twobit.cu).  Each model follows its kernel step by step at small
+tile and lane sizes and is held against the kernel's plain twin."""
 
 import functools
 
@@ -797,3 +799,216 @@ def test_pack_tags_tile_schedule(case, del_char, tile, per_lane):
                                    per_lane, rng)
     assert got_c.tolist() == ref_c.tolist(), label
     np.testing.assert_array_equal(got_p, ref_p.numpy().astype(np.int64), err_msg=label)
+
+
+# ---------------------------------------------------------------------------
+# K7: tiles of the flat payload, the tile's reads found around an estimate
+# (else by a k-ary search), its bases staged as 2-bit codes from a 16-byte
+# aligned start
+# ---------------------------------------------------------------------------
+
+def _kary_read(ends, n, j, probes):
+    """kary_reads: the largest r in [0, n) with ends[r] <= j, by rounds of
+    ``probes`` evenly spaced probes, as the block's threads search."""
+    lo, hi = 0, n
+    while hi - lo > 1:
+        s = -(-(hi - lo) // probes)
+        c = sum(1 for t in range(probes)
+                if t == 0 or (lo + t * s < hi and ends[lo + t * s] <= j))
+        lo += (c - 1) * s
+        hi = min(lo + s, hi)
+    return lo
+
+
+def _tile_reads(ends, n, n_out, ja, jb, probes, seen):
+    """tile_reads: ra and rb, from windows of ``probes`` reads around each
+    byte's estimated read where both windows hold their read, else from the
+    k-ary search; ``seen`` counts the two outcomes."""
+    top = max(n - probes, 0)
+
+    def window(j):
+        return min(max(int(j / n_out * n) - probes // 2, 0), top)
+
+    found = []
+    for j in (ja, jb):
+        g = window(j)
+        c = sum(1 for t in range(probes) if g + t < n and ends[g + t] <= j)
+        found.append((g + c - 1) if c >= 1 and (c < probes or g + probes >= n) else None)
+    if None in found:
+        seen["k-ary"] += 1
+        found = [_kary_read(ends, n, j, probes) for j in (ja, jb)]
+    else:
+        seen["window"] += 1
+    for r, j in zip(found, (ja, jb)):
+        assert r == np.searchsorted(ends[:n], j, "right") - 1
+    return found
+
+
+def _read_at(ends, lo, hi, j):
+    """read_at: the largest r in [lo, hi] with ends[r] <= j, binary."""
+    while lo < hi:
+        mid = (lo + hi + 1) >> 1
+        if ends[mid] <= j:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def pack2bit_tiles(flat, offs, couts, lut, tile, threads, addr0, rng, seen):
+    """The K7 kernel's schedule: a block a tile of ``tile`` payload bytes and
+    16 bytes a thread (``threads`` = tile // 16, also the probes of the
+    search); the tile's first and last reads by ``_tile_reads``; its bases
+    read in 16-byte chunks from their span's start aligned down to 16 bytes
+    (``addr0``: the address of flat[0] mod 16; bytes outside the buffer are
+    garbage) and kept as words of 16 two-bit codes, MSB-first; each thread
+    finds its first byte's read by ``_read_at`` between the tile's two reads
+    and takes four bytes of one read from one 32-bit funnel shift of two
+    code words where they lie inside the read, else goes byte by byte: it
+    searches again where it crosses into a later read and masks the codes
+    past the read.  Every payload byte must be written once."""
+    offs, couts = np.asarray(offs).tolist(), np.asarray(couts).tolist()
+    n, n_out = len(offs) - 1, couts[-1]
+    assert tile == 16 * threads
+    tab = [int(v) & 3 for v in lut]
+    out = np.full(n_out, -1, np.int64)
+    for j0 in range(0, n_out, tile):
+        j1 = min(j0 + tile, n_out)
+        ra, rb = _tile_reads(couts, n, n_out, j0, j1 - 1, threads, seen)
+        in_lo = offs[ra] + 4 * (j0 - couts[ra])
+        in_hi = min(offs[rb] + 4 * (j1 - couts[rb]), offs[rb + 1])
+        assert in_hi - in_lo <= 4 * tile
+        origin = in_lo - ((addr0 + in_lo) & 15)
+        chunks = -(-(in_hi - origin) // 16)
+        staged = rng.integers(0, 256, 16 * chunks)          # garbage past the buffer
+        lo, hi = max(origin, 0), min(origin + 16 * chunks, len(flat))
+        staged[lo - origin:hi - origin] = flat[lo:hi]
+        code = [0] * (chunks + 2)                            # a word past them: garbage
+        code[-2:] = rng.integers(0, 1 << 32, 2).tolist()
+        for c in range(chunks):
+            for b in staged[16 * c:16 * c + 16]:
+                code[c] = code[c] * 4 + tab[b]
+
+        def codes16(p):
+            c, sh = p >> 4, 2 * (p & 15)
+            return ((code[c] << sh) | (code[c + 1] >> (32 - sh))) & M32 if sh else code[c]
+
+        span_end = in_hi - origin
+        for t in range(threads):
+            jt = 16 * t
+            if j0 + jt >= j1:
+                continue
+            nb = min(16, j1 - j0 - jt)
+
+            def bounds(r):
+                lim = min(offs[r + 1] - origin, span_end)
+                return offs[r] - origin - 4 * (couts[r] - j0), lim, min(couts[r + 1], j1) - j0
+
+            r = _read_at(couts, ra, rb, j0 + jt)
+            x0, lim, e = bounds(r)
+            x = x0 + 4 * jt
+            got = []
+            for g in range(4):
+                if 4 * g + 4 <= nb and x + 16 <= lim:
+                    got += [(codes16(x) >> (24 - 8 * k)) & 255 for k in range(4)]
+                    x += 16
+                    continue
+                for i in range(4 * g, min(4 * g + 4, nb)):
+                    if jt + i >= e:
+                        r = _read_at(couts, r + 1, rb, j0 + jt + i)
+                        x0, lim, e = bounds(r)
+                        x = x0 + 4 * (jt + i)
+                    b = codes16(x) >> 24
+                    if lim - x < 4:
+                        b &= (0xFF00 >> (2 * (lim - x))) & 0xFF
+                    got.append(b)
+                    x += 4
+            assert (out[j0 + jt:j0 + jt + nb] == -1).all()
+            out[j0 + jt:j0 + jt + nb] = got
+    assert (out >= 0).all()
+    return out
+
+
+@pytest.mark.parametrize("addr0", [0, 9])
+@pytest.mark.parametrize("tile, threads", [(64, 4), (256, 16)])
+@pytest.mark.parametrize("case", range(6))
+def test_pack2bit_tile_schedule(case, tile, threads, addr0):
+    """testing.twobit_tile_edges at tiles of 64 and 256 bytes (reads of 0-7
+    bases, thousands of empty reads inside a tile, reads that end at tile
+    boundaries, a read longer than two tiles, many short reads a tile, reads
+    whose first base is off 16-byte alignment), with the buffer itself at
+    an aligned address and 9 bytes past one, and a random table, against
+    ops.twobit.pack2bit_twin: every payload byte."""
+    from dextractor_tpu_torch.ops.twobit import pack2bit_twin
+    from dextractor_tpu_torch.testing import twobit_tile_edges
+
+    label, flat, lengths, lead = twobit_tile_edges(tile)[case]
+    rng = np.random.default_rng(case + tile + addr0)
+    lut = rng.integers(0, 4, 256).astype(np.uint8)
+    offs = lead + np.concatenate([[0], np.cumsum(lengths)])
+    couts = np.concatenate([[0], np.cumsum((lengths + 3) >> 2)])
+    ref = pack2bit_twin(torch.from_numpy(flat[lead:]), torch.from_numpy(lengths),
+                        torch.from_numpy(lut)).numpy()
+    seen = {"window": 0, "k-ary": 0}
+    got = pack2bit_tiles(flat, offs, couts, lut, tile, threads, addr0, rng, seen)
+    np.testing.assert_array_equal(got, ref.astype(np.int64), err_msg=label)
+    if case == 1:   # thousands of empty reads: the windows miss
+        assert seen["k-ary"]
+    if case == 5:   # three reads: one window holds them all
+        assert seen["window"] and not seen["k-ary"]
+
+
+# ---------------------------------------------------------------------------
+# K9: the tiles of up to eight lookups in one grid
+# ---------------------------------------------------------------------------
+
+def lut_gather_group_tiles(groups, luts, tile, threads):
+    """The K9 kernel's schedule: block b belongs to the group g with
+    first[g] <= b < first[g + 1], ``first`` the exclusive prefix of the
+    groups' tile counts; a whole tile of a group whose data and output are
+    aligned (``groups``: (data, table, aligned)) is quads strided by the
+    block's threads, the tail tile or an unaligned group one element a
+    thread and step.  Every element must be written once."""
+    first = [0]
+    for data, _, _ in groups:
+        first.append(first[-1] + -(-data.size // tile))
+    outs = [np.full(data.size, -1, np.int64) for data, _, _ in groups]
+    for b in range(first[-1]):
+        g = 0
+        while g + 1 < len(groups) and first[g + 1] <= b:
+            g += 1
+        data, k, aligned = groups[g]
+        table = luts[k].astype(np.int64)
+        lo = (b - first[g]) * tile
+        hi = min(lo + tile, data.size)
+        if aligned and hi - lo == tile:
+            idx = [4 * (lo // 4 + t + q * threads) + e for t in range(threads)
+                   for q in range(tile // (4 * threads)) for e in range(4)]
+        else:
+            idx = [i for t in range(threads) for i in range(lo + t, hi, threads)]
+        idx = np.array(idx, np.int64)
+        assert (outs[g][idx] == -1).all() and ((idx >= lo) & (idx < hi)).all()
+        outs[g][idx] = table[data.reshape(-1)[idx].astype(np.int64) & 255]
+    assert all((o >= 0).all() for o in outs)
+    return outs
+
+
+@pytest.mark.parametrize("tile, threads", [(64, 4), (256, 16)])
+def test_lut_gather_group_schedule(tile, threads):
+    """Eight groups in one grid: 0 elements, one element, an unaligned start
+    (scalar path), u8 and int32 mixed, whole tiles and tails, against
+    bitstream_torch.lut_gather_plain group by group."""
+    rng = np.random.default_rng(tile)
+    luts = rng.integers(0, 1 << 30, (4, 256)).astype(np.int32)
+
+    def data(n, dtype):
+        return rng.integers(0, 256, n).astype(dtype)
+
+    groups = [(data(0, np.uint8), 0, True), (data(1, np.int32), 1, True),
+              (data(3 * tile + 5, np.uint8), 2, True), (data(2 * tile, np.int32), 3, False),
+              (data(tile + 1, np.uint8), 0, False), (data(tile, np.int32), 1, True),
+              (data(0, np.int32), 2, False), (data(5 * tile // 2, np.uint8).reshape(5, -1), 3, True)]
+    got = lut_gather_group_tiles(groups, luts, tile, threads)
+    for (d, k, _), out in zip(groups, got):
+        ref = bt.lut_gather_plain(torch.from_numpy(d), torch.from_numpy(luts[k]))
+        np.testing.assert_array_equal(out, ref.numpy().reshape(-1).astype(np.int64))
