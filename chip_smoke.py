@@ -54,7 +54,12 @@ Phases, each printing one line (or a few) before the final JSON lines:
    of the sub-heavy corpus, and the edge rows of
    testing.decode_edge_cases (among them run chains whose every code is 8
    bits long, and whose every code is an escape; each run chain also cut
-   at a third of its tokens), each against its twin bit for bit;
+   at a third of its tokens), K6 also on testing.expand_edge_cases (rows
+   wider than a window with and without tags, tag bytes that stop short of
+   the tokens, literals past max_len, a max_len no multiple of 16, odd
+   token counts, sparse rows over many windows, 70,000-symbol rows) and on
+   tools/decode_ablate.py's random tokens, each against its twin bit for
+   bit;
 7. decode slice: decode_dexqv_to_quiva(device=True) on the four encoded
    corpora against the original .quiva and the native walker
    (device=False), through the segmented route (the default: every corpus
@@ -69,8 +74,11 @@ Phases, each printing one line (or a few) before the final JSON lines:
    value) and on testing.twobit_tile_edges (K7's payload tiles: thousands
    of empty reads in a tile, reads ending at tile boundaries, a read over
    two tiles, a first base off 16-byte alignment) with the base, arrow and
-   a random table and the three letter tables; K7 timed at the three
-   corpora's shapes, the unpack at the uniform .fasta's;
+   a random table and the three letter tables, the unpack also on
+   testing.twobit_letter_tile_edges (its letter tiles: the same kinds of
+   reads, reads of one letter whose tile's payload is a byte a letter, a
+   payload 1-15 bytes into its buffer) with the three letter tables; both
+   timed at the three corpora's shapes;
 10. 2-bit slice: encode_fasta_to_dexta / encode_arrow_to_dexar and their
    decoders with device=True on three corpora (the uniform .fasta, a
    log-normal long-read .fasta, an .arrow of 8,000 reads), each encode byte
@@ -190,16 +198,18 @@ def device_ms(fn, reps: int = 20, match: str | None = None, warm: bool = True):
     what the profiler's activity buffers take, and the traces after such a
     one can come back with no device activity, or (with ``match``) with
     fewer than ``reps`` of the kernel's launches, several in a row; such a
-    trace is taken again, up to four times in all, and said so.  If the
-    last one holds some of the kernel's launches, their mean is the time;
-    None when it holds none of the operations sought."""
+    trace is taken again, up to eight times in all, and said so.  If none
+    holds them all, the mean of the kernel's launches in the trace that
+    holds the most is the time; None when none holds any of the
+    operations sought."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     if warm:
         fn()
     torch.cuda.synchronize()
-    for attempt in range(4):
+    best = None   # (mean, launches) of the fullest partial trace, with ``match``
+    for attempt in range(8):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -209,10 +219,13 @@ def device_ms(fn, reps: int = 20, match: str | None = None, warm: bool = True):
         total = sum(e.time_range.elapsed_us() for e in ev) / 1000
         if ev and (match is None or len(ev) >= reps):
             return total / (len(ev) if match else reps), len(ev) / reps
-        if attempt == 3:
-            return (total / len(ev), len(ev) / reps) if ev and match else (None, 0)
+        if ev and match and (best is None or len(ev) > best[1]):
+            best = (total / len(ev), len(ev))
+        if attempt == 7:
+            break
         log(f"[profiler] a trace of {reps} call(s) came back with {len(ev)} of the "
             f"device operations sought; tracing again")
+    return (best[0], best[1] / reps) if best else (None, 0)
 
 
 def phase_environment():
@@ -970,17 +983,20 @@ def _expand_bytes(runs, lits, out):
 
 def phase_decode_kernels(device, encoded, long_len: int = 70_000, row_len: int = 2500):
     """K4-K6 against their twins on ``device`` at the uniform batch's decode
-    shapes, K5/K6 on the sub-heavy corpus's subQV, and the edge rows of
-    ``decode_edge_cases(long_len, row_len)``; on the card also their times at
-    the uniform shapes.  ``encoded`` is phase_encode_slice's list.  Returns
-    {kernel: {max_abs_err, times...}}."""
+    shapes, K5/K6 on the sub-heavy corpus's subQV, the edge rows of
+    ``decode_edge_cases(long_len, row_len)``, K6 on
+    ``expand_edge_cases(min(9000, long_len), long_len)`` (with rows of
+    ``long_len`` from 66,000 on) and on decode_ablate's random tokens; on
+    the card also their times at the uniform shapes.  ``encoded`` is
+    phase_encode_slice's list.  Returns {kernel: {max_abs_err, times...}}."""
     import numpy as np
     import torch
     from dextractor_tpu_torch.ops import decode2 as d2
     from dextractor_tpu_torch.ops import decode_chains as dch
     from dextractor_tpu_torch.ops import expand
-    from dextractor_tpu_torch.testing import (batch_to, check_decode_case,
-                                              decode_batch, decode_edge_cases)
+    from dextractor_tpu_torch.testing import (batch_to, check_decode_case, decode_batch,
+                                              decode_edge_cases, expand_edge_cases)
+    from dextractor_tpu_torch.tools.decode_ablate import expand_tokens
 
     dev = torch.device(device)
     by_name = {name: enc for name, _, _, enc in encoded}
@@ -1074,6 +1090,16 @@ def phase_decode_kernels(device, encoded, long_len: int = 70_000, row_len: int =
     log(f"[kernel] decode edge rows ({long_len}-symbol rows, L2 tables of "
         f"{sorted(set(l2_lens))} entries): K4, K5, K6 bit-identical to their twins "
         "and to the encoded data")
+    cases = expand_edge_cases(min(9000, long_len), long_len if long_len >= 66_000 else 0)
+    for label, er, el, rc, ml, etb in cases:
+        run("expand_runs", (torch.from_numpy(er).to(dev), torch.from_numpy(el).to(dev), rc),
+            dict(max_len=ml, tag_bytes=None if etb is None else torch.from_numpy(etb).to(dev)),
+            f"edge: {label}, {er.shape[1]} tokens a row")
+    ntoks = rng.integers(row_len // 5, row_len // 4, 40)
+    ar, al = (torch.from_numpy(x).to(dev) for x in expand_tokens(ntoks, 48, row_len // 4))
+    for ml in (row_len, row_len // 3 + 5):
+        run("expand_runs", (ar, al, ord("n")), dict(max_len=ml),
+            f"decode_ablate's random tokens, max_len {ml}")
     for name in DECODE_KERNELS:
         res.setdefault(name, {})["max_abs_err"] = errs[name]
     return res
@@ -1278,15 +1304,16 @@ def phase_twobit_kernels(device, cases, long_len: int = 70_000):
     """K7 (pack2bit) and the unpack against their twins on ``device``, on the
     flat reads of each corpus of ``cases`` ([(name, text, arrow)], the
     uniform .fasta first), on ``twobit_edge_reads(long_len)`` and on
-    ``testing.twobit_tile_edges()`` with every table; on the card also K7's
-    times at each corpus's shapes and the unpack's at the first's (see
+    ``testing.twobit_tile_edges()`` with every table, and the unpack on
+    ``testing.twobit_letter_tile_edges()`` with every letter table; on the
+    card also both kernels' times at each corpus's shapes (see
     ``measure``).  Returns {kernel: {max_abs_err, times...}}."""
     import numpy as np
     import torch
     from dextractor_tpu_torch.formats.fasta import parse_seq_file
     from dextractor_tpu_torch.ops import pack2bit as pk
     from dextractor_tpu_torch.ops import twobit as tb
-    from dextractor_tpu_torch.testing import twobit_tile_edges
+    from dextractor_tpu_torch.testing import twobit_letter_tile_edges, twobit_tile_edges
 
     rng = np.random.default_rng(5)
     tables = {"base": tb.NUMBER_BASE_LUT, "arrow": tb.NUMBER_ARROW_LUT,
@@ -1298,7 +1325,7 @@ def phase_twobit_kernels(device, cases, long_len: int = 70_000):
         return tb.pack2bit_twin(flat[int(offs[0]):], offs.diff(), lut)
 
     def unpack_twin(pay, pay_offs, outs, lut, n_out):
-        return tb.unpack2bit_twin(pay, outs.diff(), lut)
+        return tb.unpack2bit_twin(pay[int(pay_offs[0]):], outs.diff(), lut)
 
     def check(name, kern, twin, args):
         got, ref = kern(*args), twin(*args)
@@ -1333,11 +1360,12 @@ def phase_twobit_kernels(device, cases, long_len: int = 70_000):
                     n_sym + offsets + 256 + pargs[4], label=f"pack2bit ({name})")
         res["pack2bit"].update(m if i == 0 else {f"{name}_{k}": m[k] for k in (
             "ms", "warm_ms", "plain_ms", "bound_ms", "event_ms", "bytes")})
+        m = measure("unpack2bit", lambda: pk.unpack2bit(*uargs), lambda: unpack_twin(*uargs),
+                    pargs[4] + offsets + 4 + n_sym, label=f"unpack2bit ({name})")
+        res["unpack2bit"].update(m if i == 0 else {f"{name}_{k}": m[k] for k in (
+            "ms", "warm_ms", "plain_ms", "bound_ms", "event_ms", "bytes")})
         if i:
             continue
-        res["unpack2bit"].update(measure(
-            "unpack2bit", lambda: pk.unpack2bit(*uargs), lambda: unpack_twin(*uargs),
-            pargs[4] + offsets + 4 + n_sym))
         h2d = _host_s(lambda: torch.from_numpy(f.seqs.flat).to(device))
         d2h = _host_s(lambda: payload.cpu())
         log(f"[2-bit copies] host clock, pageable memory: H2D of the {n_sym} bases "
@@ -1362,6 +1390,17 @@ def phase_twobit_kernels(device, cases, long_len: int = 70_000):
             check("pack2bit", pk.pack2bit, pack_twin, pargs)
     log(f"[kernel] pack2bit tile edges ({'; '.join(e[0] for e in edges)}) with the "
         f"{', '.join(tables)} tables bit-identical to its twin")
+    edges = twobit_letter_tile_edges()
+    for label, payload, lengths, lead in edges:
+        pay_offs = lead + np.concatenate([[0], np.cumsum((lengths + 3) >> 2)])
+        outs = np.concatenate([[0], np.cumsum(lengths)])
+        dev_args = [torch.from_numpy(a).to(device) for a in (payload, pay_offs, outs)]
+        for letter_lut in letters.values():
+            # the payloads start ``lead`` bytes into the buffer on the device
+            check("unpack2bit", pk.unpack2bit, unpack_twin,
+                  (*dev_args, torch.from_numpy(letter_lut).to(device), int(outs[-1])))
+    log(f"[kernel] unpack2bit letter tile edges ({'; '.join(e[0] for e in edges)}) with "
+        f"the {', '.join(letters)} letters bit-identical to its twin")
     return res
 
 

@@ -45,7 +45,7 @@ ARGTYPES = {
                        _P, _I, _LL, _P],
     "dxt_expand_runs": [_P, _P, _LL, _I, _P, _LL, _P, _P, _I, _LL, _P],
     "dxt_pack2bit": [_P, _P, _P, _P, _P, _LL, _LL, _P],
-    "dxt_unpack2bit": [_P, _P, _P, _P, _P, _LL, _P],
+    "dxt_unpack2bit": [_P, _P, _P, _P, _P, _LL, _LL, _P],
     "dxt_tag_route": [_P, _LL, _P, _P, _I, _LL, _I, _P],
 }
 

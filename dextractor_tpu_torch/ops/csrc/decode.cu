@@ -29,24 +29,23 @@
 // bytes a store where aligned; K5 writes padding tokens past each chain's
 // end.  The L1 tables and, when it fits in 32 KB, the L2 table sit in
 // shared memory.  K6 is bound by bytes (it writes every
-// column of its rows once): one block per row fills rchar (and -1 for the
-// tags), then a block scan of the run lengths over 1,024-token chunks,
-// carried across chunks, places literal k at column cumsum(runs)[k] + k and
-// its delTag letter beside it.
+// column of its rows once): a warp a row (8 warps a row for few rows or
+// rows of more tokens, 32 for the widest), each warp a slice of the row's
+// tokens, whose columns it
+// builds in shared memory (rchar and -1, then literal k at column
+// cumsum(runs)[k] + k and its delTag letter beside it) and writes once, 16
+// bytes a store; runs are >= 0, so each slice owns one span of columns
+// (expand_runs_kernel).
 
 #include <cstdint>
 #include <cuda_runtime.h>
-
-#include "block_scan.cuh"
 
 namespace {
 
 constexpr int kMaxChannels = 4;
 constexpr long long kSmemL2Max = 8192;  // L2 entries staged in shared memory (32 KB);
                                         // decode_chains.SMEM_L2_MAX mirrors it
-constexpr int kExpandThreads = 256;
-constexpr int kExpandItems = 4;
-constexpr int kExpandChunk = kExpandThreads * kExpandItems;
+constexpr long long kColCap = 1LL << 30;  // K6: the most columns and tokens a row
 
 struct PlainChannels {
   const uint32_t* rect[kMaxChannels];  // (N, k) words of each channel
@@ -565,60 +564,202 @@ decode_run_kernel(const uint32_t* __restrict__ rect, long long k,
   }
 }
 
-__global__ void __launch_bounds__(kExpandThreads)
+// dst[0, n) = src[0, n) by the 32 lanes of a warp, src in shared memory at
+// the same address mod 16 as dst: 16-byte stores where the address allows,
+// single bytes at the two ends.
+__device__ __forceinline__ void warp_copy(uint8_t* dst, const uint8_t* src, int n, int lane) {
+  const int mis = (16 - static_cast<int>(reinterpret_cast<uintptr_t>(dst) & 15)) & 15;
+  const int body = mis < n ? mis : n;
+  const int end = body + ((n - body) & ~15);
+  if (lane < body) dst[lane] = src[lane];
+  for (int i = body + 16 * lane; i < end; i += 16 * 32) {
+    *reinterpret_cast<uint4*>(dst + i) = *reinterpret_cast<const uint4*>(src + i);
+  }
+  if (lane < n - end) dst[end + lane] = src[end + lane];
+}
+
+// Columns as unsigned sums that stop at kColCap: max_len and n_tokens are at
+// most kColCap, so a column that reaches it lies past the row either way,
+// and a column, a capped sum plus a token index, stays below 2^31.
+__device__ __forceinline__ uint32_t cap_add(uint32_t a, uint32_t b) {
+  const uint32_t s = a + b;   // both <= kColCap: no wrap
+  return s < static_cast<uint32_t>(kColCap) ? s : static_cast<uint32_t>(kColCap);
+}
+
+// K6: kRowWarps warps a row (1, or the whole block), kWarps / kRowWarps rows
+// a block.  A row's tokens go in rounds of kRowWarps slices of 32 *
+// kLaneTokens, one slice a warp, kLaneTokens consecutive tokens a lane,
+// loaded at once (16-byte loads where the planes allow).  Token k owns the
+// columns [cumsum(runs)[k-1] + k, cumsum(runs)[k] + k]: its run of rchar,
+// then its literal's column.  So a slice owns one span of columns, found by
+// a warp scan of its runs and, with several warps a row, a scan of the
+// slices' sums through shared memory (one barrier a round).  Each lane keeps
+// its literals' columns and low bytes, -1 for no literal.  The warp builds
+// its span in windows of kWin columns in its own shared memory, rchar (and
+// -1) first, then its literals and their tag letters, and writes each
+// window's columns once, at the window's alignment in shared memory so that
+// the body goes as 16-byte stores.  The columns past the last token's are
+// rchar (and -1), written without staging.  Runs are >= 0 (every producer's
+// contract), so columns grow with the token index: a round that starts at
+// or past max_len ends the row.
+template <int kWarps, int kRowWarps, int kLaneTokens, int kWin>
+__global__ void __launch_bounds__(32 * kWarps)
 expand_runs_kernel(const int* __restrict__ runs, const int* __restrict__ lits,
                    long long n_tokens, int rchar, const uint8_t* __restrict__ tag_bytes,
-                   long long tag_width, uint8_t* __restrict__ rows,
-                   int8_t* __restrict__ tags, long long max_len) {
-  __shared__ int s_warp[kExpandThreads / 32];
-  const long long row = blockIdx.x;
+                   long long tag_width, uint8_t* __restrict__ rows, int8_t* __restrict__ tags,
+                   int n_rows, long long max_len) {
+  constexpr int kSlot = kWin + 16;
+  constexpr int kSlice = 32 * kLaneTokens;
+  __shared__ __align__(16) uint8_t s_row[kWarps][kSlot];
+  __shared__ __align__(16) uint8_t s_tag[kWarps][kSlot];
+  __shared__ uint32_t s_sum[2][kRowWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * (kWarps / kRowWarps) + warp / kRowWarps;
+  const int part = warp % kRowWarps;   // the warp's slice of a round
+  if (row >= n_rows) return;           // (several warps a row: the grid is exact)
   uint8_t* out = rows + row * max_len;
-  int8_t* tout = tags ? tags + row * max_len : nullptr;
-  if ((max_len & 3) == 0) {
-    const uint32_t fill = static_cast<uint32_t>(rchar & 0xFF) * 0x01010101u;
-    for (long long i = threadIdx.x; i < max_len / 4; i += kExpandThreads) {
-      reinterpret_cast<uint32_t*>(out)[i] = fill;
-      if (tout) reinterpret_cast<uint32_t*>(tout)[i] = 0xFFFFFFFFu;
-    }
-  } else {
-    for (long long i = threadIdx.x; i < max_len; i += kExpandThreads) {
-      out[i] = static_cast<uint8_t>(rchar);
-      if (tout) tout[i] = -1;
-    }
-  }
-  __syncthreads();  // the fill lands before any literal overwrites it
-
+  uint8_t* tout = tags ? reinterpret_cast<uint8_t*>(tags) + row * max_len : nullptr;
   const int* rr = runs + row * n_tokens;
   const int* lr = lits + row * n_tokens;
   const uint8_t* tb = tag_bytes ? tag_bytes + row * tag_width : nullptr;
-  long long carry = 0;  // sum of the runs of earlier chunks
-  for (long long c0 = 0; c0 < n_tokens; c0 += kExpandChunk) {
-    const long long k0 = c0 + threadIdx.x * kExpandItems;
-    int run[kExpandItems], lit[kExpandItems];
-    int local = 0;
+  const bool vec = (n_tokens & 3) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(runs) | reinterpret_cast<uintptr_t>(lits)) & 15) == 0;
+  const bool tvec = (tag_width & 3) == 0 && (reinterpret_cast<uintptr_t>(tag_bytes) & 3) == 0;
+  const uint8_t rc = static_cast<uint8_t>(rchar);
+  const uint32_t letters = 'a' | ('c' << 8) | ('g' << 16) | ('t' << 24);
+  uint8_t* srow = s_row[warp];
+  uint8_t* stag = s_tag[warp];
+  uint32_t carry = 0;   // the runs of the rounds before, capped
+  long long k0 = 0;
+  for (int rd = 0; k0 < n_tokens; ++rd, k0 += static_cast<long long>(kRowWarps) * kSlice) {
+    if (carry + k0 >= max_len) break;   // the round's first column: the rest is dropped
+    const long long a = k0 + static_cast<long long>(part) * kSlice;   // the slice
+    const long long kl = a + lane * kLaneTokens;                     // the lane's tokens
+    // col[i]: first the lane's capped inclusive run sums, then token kl + i's
+    // column, 0xffffffff without a literal; lb: the literals' low bytes
+    uint32_t col[kLaneTokens], lb[kLaneTokens / 4];
+    uint32_t sum = 0;
 #pragma unroll
-    for (int i = 0; i < kExpandItems; ++i) {
-      const bool in = k0 + i < n_tokens;
-      run[i] = in ? rr[k0 + i] : 0;
-      lit[i] = in ? lr[k0 + i] : -1;
-      local += run[i];
+    for (int q = 0; q < kLaneTokens / 4; ++q) {
+      int4 r4 = make_int4(0, 0, 0, 0), l4 = make_int4(-1, -1, -1, -1);
+      const long long k = kl + 4 * q;
+      if (vec) {
+        if (k < n_tokens) {
+          r4 = *reinterpret_cast<const int4*>(rr + k);
+          l4 = *reinterpret_cast<const int4*>(lr + k);
+        }
+      } else {
+        if (k < n_tokens) { r4.x = rr[k]; l4.x = lr[k]; }
+        if (k + 1 < n_tokens) { r4.y = rr[k + 1]; l4.y = lr[k + 1]; }
+        if (k + 2 < n_tokens) { r4.z = rr[k + 2]; l4.z = lr[k + 2]; }
+        if (k + 3 < n_tokens) { r4.w = rr[k + 3]; l4.w = lr[k + 3]; }
+      }
+      const int rv[4] = {r4.x, r4.y, r4.z, r4.w};
+      const int lv[4] = {l4.x, l4.y, l4.z, l4.w};
+      uint32_t b = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t run = static_cast<uint32_t>(rv[e]);
+        sum = cap_add(sum, run < static_cast<uint32_t>(kColCap) ? run : static_cast<uint32_t>(kColCap));
+        col[4 * q + e] = lv[e] >= 0 ? sum : 0xffffffffu;
+        b |= static_cast<uint32_t>(lv[e] & 0xff) << (8 * e);
+      }
+      lb[q] = b;
     }
-    int total;
-    long long d = carry + dxt::block_scan<kExpandThreads>(local, 0, dxt::SumOp(), s_warp, &total);
+    // the lane's tag codes, token kl + i at bits 31 - 2(i & 15) of word i >> 4
+    // (code k: byte k >> 2, first code in bits 7-6; codes past 4 * tag_width read 0)
+    constexpr int kCodeWords = (kLaneTokens + 15) / 16;
+    uint32_t codes[kCodeWords];
 #pragma unroll
-    for (int i = 0; i < kExpandItems; ++i) {
-      d += run[i];
-      const long long kk = k0 + i;
-      const long long col = d + kk;
-      if (lit[i] >= 0 && col < max_len) {
-        out[col] = static_cast<uint8_t>(lit[i]);
-        if (tout) {  // code k of the packed tag row, first code in bits 7-6
-          const int code = (kk >> 2) < tag_width ? (tb[kk >> 2] >> (6 - 2 * (kk & 3))) & 3 : 0;
-          tout[col] = static_cast<int8_t>("acgt"[code]);
+    for (int h = 0; h < kCodeWords; ++h) {
+      codes[h] = 0;
+      if (tout) {
+        const long long b0 = (kl >> 2) + 4 * h;
+        if (kLaneTokens % 16 == 0 && tvec && b0 + 4 <= tag_width) {
+          codes[h] = __byte_perm(*reinterpret_cast<const uint32_t*>(tb + b0), 0u, 0x0123);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (4 * (4 * h + i) < kLaneTokens && b0 + i < tag_width) {
+              codes[h] |= static_cast<uint32_t>(tb[b0 + i]) << (24 - 8 * i);
+            }
+          }
         }
       }
     }
-    carry += total;
+    uint32_t incl = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const uint32_t t = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl = cap_add(incl, t);
+    }
+    const uint32_t slice = __shfl_sync(0xffffffffu, incl, 31);
+    uint32_t excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) excl = 0;
+    uint32_t before = carry;   // the runs before the slice
+    if (kRowWarps > 1) {
+      if (lane == 0) s_sum[rd & 1][part] = slice;
+      __syncthreads();
+      uint32_t total = 0;
+#pragma unroll
+      for (int w = 0; w < kRowWarps; ++w) {
+        const uint32_t v = s_sum[rd & 1][w];
+        if (w < part) before = cap_add(before, v);
+        total = cap_add(total, v);
+      }
+      carry = cap_add(carry, total);
+    } else {
+      carry = cap_add(carry, slice);
+    }
+    if (a >= n_tokens) continue;
+    const long long b = a + kSlice < n_tokens ? a + kSlice : n_tokens;
+    const long long lo = before + a;   // the slice's columns [lo, hi)
+    const long long hi0 = static_cast<long long>(cap_add(before, slice)) + b;
+    const long long hi = hi0 < max_len ? hi0 : max_len;
+    const uint32_t pre = cap_add(before, excl);
+#pragma unroll
+    for (int i = 0; i < kLaneTokens; ++i) {
+      if (col[i] != 0xffffffffu) col[i] = cap_add(pre, col[i]) + static_cast<uint32_t>(kl + i);
+    }
+    for (long long c0 = lo; c0 < hi; c0 += kWin) {
+      const int n = static_cast<int>(hi - c0 < kWin ? hi - c0 : kWin);
+      const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(out + c0) & 15);
+      const int mist = tout ? static_cast<int>(reinterpret_cast<uintptr_t>(tout + c0) & 15) : 0;
+      const uint32_t f4 = rc * 0x01010101u;
+      for (int i = 16 * lane; i < mis + n; i += 16 * 32) {
+        *reinterpret_cast<uint4*>(srow + i) = make_uint4(f4, f4, f4, f4);
+      }
+      if (tout) {
+        for (int i = 16 * lane; i < mist + n; i += 16 * 32) {
+          *reinterpret_cast<uint4*>(stag + i) = make_uint4(~0u, ~0u, ~0u, ~0u);
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < kLaneTokens; ++i) {
+        const uint32_t x = col[i] - static_cast<uint32_t>(c0);   // wraps below c0
+        if (x < static_cast<uint32_t>(n)) {
+          srow[mis + x] = static_cast<uint8_t>(lb[i >> 2] >> (8 * (i & 3)));
+          if (tout) {
+            const uint32_t code = (codes[i >> 4] >> (30 - 2 * (i & 15))) & 3u;
+            stag[mist + x] = static_cast<uint8_t>(letters >> (8 * code));
+          }
+        }
+      }
+      __syncwarp();
+      warp_copy(out + c0, srow + mis, n, lane);
+      if (tout) warp_copy(tout + c0, stag + mist, n, lane);
+      __syncwarp();
+    }
+  }
+  // the columns past the last token's (none where a round ended the row)
+  const long long tail = carry + (k0 < n_tokens ? k0 : n_tokens);
+  if (tail < max_len) {
+    const long long per = ((max_len - tail + kRowWarps - 1) / kRowWarps + 15) & ~15LL;
+    const long long from = tail + part * per;
+    const long long to = from + per < max_len ? from + per : max_len;
+    warp_fill(out, from, to, rc, lane);
+    if (tout) warp_fill(tout, from, to, 0xFF, lane);
   }
 }
 
@@ -677,11 +818,39 @@ extern "C" int dxt_decode_run(const void* rect, long long k, const void* rlens, 
 extern "C" int dxt_expand_runs(const void* runs, const void* lits, long long n_tokens, int rchar,
                                const void* tag_bytes, long long tag_width, void* rows, void* tags,
                                int n_rows, long long max_len, void* stream) {
-  if (n_rows <= 0) return 0;
-  expand_runs_kernel<<<static_cast<unsigned>(n_rows), kExpandThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(runs), static_cast<const int*>(lits), n_tokens, rchar,
-      static_cast<const uint8_t*>(tag_bytes), tag_width, static_cast<uint8_t*>(rows),
-      static_cast<int8_t*>(tags), max_len);
+  if (n_rows <= 0 || max_len <= 0) return 0;
+  if (max_len > kColCap || n_tokens > kColCap) return static_cast<int>(cudaErrorInvalidValue);
+  const auto r = static_cast<const int*>(runs);
+  const auto l = static_cast<const int*>(lits);
+  const auto tb = static_cast<const uint8_t*>(tag_bytes);
+  const auto o = static_cast<uint8_t*>(rows);
+  const auto t = static_cast<int8_t*>(tags);
+  const auto s = static_cast<cudaStream_t>(stream);
+  // a warp a row while its tokens take one slice of 32 a lane and the rows
+  // give each SM four warps or more; fewer rows take a block of 8 warps a
+  // row, 4 tokens a lane, for shorter chains.  Wider rows take a block of 8
+  // warps of 16 a lane for one round, past it one of 32 warps of 8 a lane
+  // (more would spill at 1,024 threads).
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  if (n_tokens <= 32 * 32 && n_rows >= 4 * sms) {
+    expand_runs_kernel<4, 1, 32, 4096><<<static_cast<unsigned>((n_rows + 3) / 4), 128, 0, s>>>(
+        r, l, n_tokens, rchar, tb, tag_width, o, t, n_rows, max_len);
+  } else if (n_tokens <= 32 * 32) {
+    expand_runs_kernel<8, 8, 4, 2048><<<static_cast<unsigned>(n_rows), 256, 0, s>>>(
+        r, l, n_tokens, rchar, tb, tag_width, o, t, n_rows, max_len);
+  } else if (n_tokens <= 8 * 32 * 16) {
+    expand_runs_kernel<8, 8, 16, 2048><<<static_cast<unsigned>(n_rows), 256, 0, s>>>(
+        r, l, n_tokens, rchar, tb, tag_width, o, t, n_rows, max_len);
+  } else {
+    expand_runs_kernel<32, 32, 8, 512><<<static_cast<unsigned>(n_rows), 1024, 0, s>>>(
+        r, l, n_tokens, rchar, tb, tag_width, o, t, n_rows, max_len);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,10 +45,37 @@
 // lie 4 words apart, meet at most two to a bank.  The byte table's entries
 // are read by a warp without conflict for the letters acgtACGT and 1234.
 // Staging the raw bases instead and looking them up while packing (four
-// lookups a payload byte) measured 1.2x slower (PERF.md).  The
-// unpack is still one block a read and one byte a thread a step, with
-// single-byte loads and stores.
+// lookups a payload byte) measured 1.2x slower (PERF.md).
+//
+// The unpack (unpack2bit_kernel) owns tiles of the flat letter output, one
+// a warp: kUnpackWarpTile letters, 16 letters a group written as one 16-byte
+// store (the letters come from torch.empty, so every group starts 16-byte
+// aligned), kUnpackGroups groups a lane, 32 groups apart, so that each warp
+// store writes 512 contiguous bytes.  The warp loads the letter and payload
+// offsets of a window of 32 reads, a read a lane, around the read of its
+// first letter estimated from its position; where the window holds the
+// reads of the tile's first and last letters (reads of a few hundred
+// letters and more), each group finds its read by a binary search of the
+// lanes' offsets with shuffles, as many steps as the tile's reads need, and
+// takes the next read's end and payload start from the window too; else
+// the tile's two reads come from a k-ary search of all reads, 32 probes a
+// round, and each group searches between them (read_at).  A group whose 16
+// letters lie in one read, or in one read and the next, takes each read's
+// codes from the aligned 32-bit payload word that holds their first byte
+// and the next word, read only where it holds some of the read's codes
+// (payloads start at any byte, and no byte past a read's is needed), joined
+// by one funnel shift, MSB-first; bit-reversed, the codes become selector
+// nibbles by three spreading steps, and four byte permutations of the
+// letter table (its entries in the order that the reversal leaves each
+// code's two bits) give the 16 letters.  Other groups (reads shorter than
+// the group, the output's last letters) go letter by letter and search
+// again where they cross into a later read, so a run of empty reads costs
+// a search.  No shared memory and no barrier: each warp's chain is its
+// offsets' load, a few shuffles, its payload words' load and its stores.
+// Tiles of a block with the payload staged in shared memory (K7's schedule
+// in reverse) measured slower than a block a read (PERF.md).
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -61,6 +88,11 @@ constexpr int kPackMinBlocks = 6;                      // resident blocks an SM 
 constexpr int kSpanChunks = (4 * kPackTile + 15) / 16 + 1;   // 16-byte chunks of a tile's bases
 constexpr int kChunksPerThread = (kSpanChunks + kThreads - 1) / kThreads;
 constexpr int kCodeSlots = kSpanChunks + 2 + (kSpanChunks + 1) / 8;   // and a word past them, skewed
+constexpr int kUnpackLetters = 16;                     // letters a group: one 16-byte store
+constexpr int kUnpackGroups = 4;                       // groups a lane, 32 groups apart
+constexpr int kUnpackWarpTile = kUnpackLetters * 32 * kUnpackGroups;   // letters a warp: 2,048
+constexpr int kUnpackWarps = 8;                        // warps a block
+constexpr int kUnpackTile = kUnpackWarpTile * kUnpackWarps;            // letters a block: 16,384
 
 // Shared code word w of a staged span: a spare word after every 8.
 __device__ __forceinline__ int skew(int w) { return w + (w >> 3); }
@@ -251,27 +283,174 @@ pack2bit_kernel(const uint8_t* __restrict__ flat, const int64_t* __restrict__ of
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// 16 codes of a read from its code q on, the first in bits 31-30, of which
+// the first k (1-16) are the read's: from the aligned word that holds code
+// q's byte and the next word, read only when it holds some of those k (so
+// no byte past the read's is read where the next word would be needed).
+__device__ __forceinline__ uint32_t read_codes(const uint8_t* __restrict__ payload,
+                                               int64_t src, int q, int k) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(payload + src + (q >> 2));
+  const uint32_t* wp = reinterpret_cast<const uint32_t*>(at & ~uintptr_t{3});
+  const int sh = 8 * static_cast<int>(at & 3) + 2 * (q & 3);
+  const uint32_t hi = __byte_perm(wp[0], 0u, 0x0123);
+  const uint32_t lo = sh + 2 * k > 32 ? __byte_perm(wp[1], 0u, 0x0123) : 0u;
+  return __funnelshift_l(lo, hi, sh);
+}
+
+__global__ void __launch_bounds__(32 * kUnpackWarps)
 unpack2bit_kernel(const uint8_t* __restrict__ payload, const int64_t* __restrict__ pay_offs,
                   const int64_t* __restrict__ out_offs, const uint8_t* __restrict__ letter_lut,
-                  uint8_t* __restrict__ out) {
-  const uint32_t letters = letter_lut[0] | (letter_lut[1] << 8) | (letter_lut[2] << 16) |
-                           (static_cast<uint32_t>(letter_lut[3]) << 24);
-  const int64_t r = blockIdx.x;
-  const int64_t o0 = out_offs[r];
-  const int64_t len = out_offs[r + 1] - o0;
-  const int64_t nbytes = (len + 3) >> 2;
-  const uint8_t* src = payload + pay_offs[r];
-  uint8_t* dst = out + o0;
-  for (int64_t j = threadIdx.x; j < nbytes; j += kThreads) {
-    const uint32_t b = src[j];
-    const int64_t p = 4 * j;
+                  uint8_t* __restrict__ out, int64_t n_reads, int64_t n_out) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int64_t j0 = (static_cast<int64_t>(blockIdx.x) * kUnpackWarps + (threadIdx.x >> 5)) *
+                     kUnpackWarpTile;
+  if (j0 >= n_out) return;
+  const int64_t j1 = j0 + kUnpackWarpTile < n_out ? j0 + kUnpackWarpTile : n_out;
+  const uint32_t lut = letter_lut[0] | (letter_lut[1] << 8) | (letter_lut[2] << 16) |
+                       (static_cast<uint32_t>(letter_lut[3]) << 24);
+  // the table by a code with its two bits swapped, the order __brev leaves them in
+  const uint32_t lut_sw = __byte_perm(lut, 0u, 0x3120);
+  // a window of 32 reads around the tile's first letter's read estimated from
+  // its position, a read a lane: its first letter relative to j0 (clamped to
+  // int32; reads past the last start at n_out, past every letter) and its
+  // payload's start
+  const int64_t top = n_reads > 32 ? n_reads - 32 : 0;
+  auto clamp = [top](int64_t g) { return g < 0 ? 0 : (g > top ? top : g); };
+  auto rel = [j0](int64_t o) {
+    const int64_t d = o - j0;
+    return static_cast<int>(d < INT32_MIN ? INT32_MIN : (d > INT32_MAX ? INT32_MAX : d));
+  };
+  const int jt1 = static_cast<int>(j1 - j0);
+  int64_t g = clamp(static_cast<int64_t>(static_cast<double>(j0) / static_cast<double>(n_out) *
+                                         static_cast<double>(n_reads)) - 16);
+  int e, e_next, na, nb;
+  int64_t p;
+  bool win;
+  for (int attempt = 0;; ++attempt) {
+    const int64_t pr = g + lane < n_reads ? g + lane : n_reads;
+    const int64_t e64 = out_offs[pr];
+    e = rel(e64);
+    p = pay_offs[pr];
+    e_next = rel(out_offs[g + 32 < n_reads ? g + 32 : n_reads]);
+    na = __popc(__ballot_sync(kAll, e <= 0));
+    nb = __popc(__ballot_sync(kAll, e <= jt1 - 1));
+    // the window holds the reads of the tile's first and last letters
+    win = na >= 1 && (nb < 32 || e_next > jt1 - 1);
+    if (win || attempt) break;
+    // a second window where this one puts the first letter's read: before
+    // it or after it by interpolation, else from that read on
+    const int64_t e0 = __shfl_sync(kAll, e64, 0), e31 = __shfl_sync(kAll, e64, 31);
+    if (na == 0) {
+      g = clamp(static_cast<int64_t>(static_cast<double>(j0) / static_cast<double>(e0) *
+                                     static_cast<double>(g)) - 16);
+    } else if (na < 32) {
+      g = clamp(g + na - 1);
+    } else {
+      g = clamp(g + 31 + static_cast<int64_t>(static_cast<double>(j0 - e31) /
+                                              static_cast<double>(n_out - e31) *
+                                              static_cast<double>(n_reads - g - 31)) - 16);
+    }
+  }
+  int64_t ra = g + na - 1, rb = g + nb - 1;
+  if (!win) {   // a k-ary search of all reads, 32 probes a round for each letter
+    int64_t lo_a = 0, hi_a = n_reads, lo_b = 0, hi_b = n_reads;
+    while (hi_a - lo_a > 1 || hi_b - lo_b > 1) {
+      const int64_t sa = (hi_a - lo_a + 31) / 32, sb = (hi_b - lo_b + 31) / 32;
+      const int64_t qa = lo_a + lane * sa, qb = lo_b + lane * sb;
+      const int ca = __popc(__ballot_sync(kAll, lane == 0 || (qa < hi_a && out_offs[qa] <= j0)));
+      const int cb = __popc(__ballot_sync(kAll, lane == 0 || (qb < hi_b && out_offs[qb] <= j1 - 1)));
+      lo_a += (ca - 1) * sa;
+      hi_a = lo_a + sa < hi_a ? lo_a + sa : hi_a;
+      lo_b += (cb - 1) * sb;
+      hi_b = lo_b + sb < hi_b ? lo_b + sb : hi_b;
+    }
+    ra = lo_a;
+    rb = lo_b;
+  }
+  // binary search steps over the window's reads of the tile
+  const int steps = nb - na > 0 ? 32 - __clz(nb - na) : 0;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (p + k < len) {
-        const uint32_t code = (b >> (6 - 2 * k)) & 3u;
-        dst[p + k] = static_cast<uint8_t>(letters >> (8 * code));
+  for (int gi = 0; gi < kUnpackGroups; ++gi) {
+    const int jt = kUnpackLetters * (lane + 32 * gi);   // the group's first letter, from j0
+    const int jq = jt < jt1 ? jt : jt1 - 1;
+    // read r of letter jq, its letters [o, o1) and payload from src; in the
+    // window also the next read's end o2 and payload src1
+    int64_t r, src, src1 = 0;
+    int o, o1, o2 = 0;
+    if (win) {   // by a binary search of the lanes' reads, every lane taking part
+      int lo = na - 1, hi = nb - 1;
+      for (int s = 0; s < steps; ++s) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (__shfl_sync(kAll, e, mid) <= jq) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
       }
+      r = g + lo;
+      o = __shfl_sync(kAll, e, lo);
+      src = __shfl_sync(kAll, p, lo);
+      const int n1 = __shfl_sync(kAll, e, lo < 31 ? lo + 1 : 31);
+      const int n2 = __shfl_sync(kAll, e, lo < 30 ? lo + 2 : 31);
+      src1 = __shfl_sync(kAll, p, lo < 31 ? lo + 1 : 31);
+      o1 = lo < 31 ? n1 : e_next;
+      o2 = lo < 30 ? n2 : (lo == 30 ? e_next : o1);   // o2 == o1: not known
+    } else {
+      r = read_at(out_offs, ra, rb, j0 + jq);
+      o = rel(out_offs[r]);
+      o1 = rel(out_offs[r + 1]);
+      src = pay_offs[r];
+    }
+    if (jt >= jt1) continue;
+    const int nl = jt1 - jt < kUnpackLetters ? jt1 - jt : kUnpackLetters;
+    uint32_t w[4];
+    const int na16 = o1 - jt;   // the group's letters in read r
+    if (nl == kUnpackLetters && (na16 >= kUnpackLetters || o2 - jt >= kUnpackLetters)) {
+      // the 16 letters lie in read r, or in read r and the next
+      const int ka = na16 < kUnpackLetters ? na16 : kUnpackLetters;
+      uint32_t c = read_codes(payload, src, jt - o, ka);
+      if (ka < kUnpackLetters) {
+        const uint32_t keep = 0xffffffffu >> (2 * ka);
+        c = (c & ~keep) | (read_codes(payload, src1, 0, kUnpackLetters - ka) >> (2 * ka));
+      }
+      // the codes, the first in bits 1-0 (its bits swapped), to selector
+      // nibbles: codes 0-7 in lo, 8-15 in hi
+      const uint32_t c16 = __brev(c);
+      uint32_t lo = c16 & 0xffffu, hi = c16 >> 16;
+      lo = (lo | (lo << 8)) & 0x00ff00ffu;
+      hi = (hi | (hi << 8)) & 0x00ff00ffu;
+      lo = (lo | (lo << 4)) & 0x0f0f0f0fu;
+      hi = (hi | (hi << 4)) & 0x0f0f0f0fu;
+      lo = (lo | (lo << 2)) & 0x33333333u;
+      hi = (hi | (hi << 2)) & 0x33333333u;
+      w[0] = __byte_perm(lut_sw, 0u, lo);
+      w[1] = __byte_perm(lut_sw, 0u, lo >> 16);
+      w[2] = __byte_perm(lut_sw, 0u, hi);
+      w[3] = __byte_perm(lut_sw, 0u, hi >> 16);
+    } else {   // letter by letter, into the next read that is not empty at a read's end
+      w[0] = w[1] = w[2] = w[3] = 0u;
+#pragma unroll
+      for (int i = 0; i < kUnpackLetters; ++i) {
+        if (i < nl) {
+          const int jl = jt + i;
+          if (jl >= o1) {
+            r = read_at(out_offs, r + 1, rb, j0 + jl);
+            o = rel(out_offs[r]);
+            o1 = rel(out_offs[r + 1]);
+            src = pay_offs[r];
+          }
+          const int q = jl - o;
+          const uint32_t code = (payload[src + (q >> 2)] >> (6 - 2 * (q & 3))) & 3u;
+          w[i >> 2] |= ((lut >> (8 * code)) & 0xffu) << (8 * (i & 3));
+        }
+      }
+    }
+    uint8_t* dst = out + j0 + jt;
+    if (nl == kUnpackLetters) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+      for (int i = 0; i < nl; ++i) dst[i] = static_cast<uint8_t>(w[i >> 2] >> (8 * (i & 3)));
     }
   }
 }
@@ -297,17 +476,22 @@ extern "C" int dxt_pack2bit(const void* flat, const void* offs, const void* out_
   return static_cast<int>(cudaGetLastError());
 }
 
-// payload: the reads' packed bytes; pay_offs (n_reads + 1) int64: read i's
-// payload starts at pay_offs[i]; out_offs (n_reads + 1) int64: read i's
-// len letters go to out[out_offs[i], out_offs[i+1]); letter_lut (4) u8.
+// payload: the reads' packed bytes, end to end; pay_offs (n_reads + 1)
+// int64: read i's ceil(len/4) bytes start at pay_offs[i]; out_offs (n_reads
+// + 1) int64 from 0: read i's len letters go to out[out_offs[i],
+// out_offs[i+1]); letter_lut (4) u8; out: n_out = out_offs[n_reads] bytes,
+// 16-byte aligned.
 extern "C" int dxt_unpack2bit(const void* payload, const void* pay_offs, const void* out_offs,
                               const void* letter_lut, void* out, long long n_reads,
-                              void* stream) {
-  if (n_reads <= 0) return 0;
-  unpack2bit_kernel<<<static_cast<unsigned>(n_reads), kThreads, 0,
+                              long long n_out, void* stream) {
+  if (n_reads <= 0 || n_out <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (n_out + kUnpackTile - 1) / kUnpackTile;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  unpack2bit_kernel<<<static_cast<unsigned>(tiles), 32 * kUnpackWarps, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(payload), static_cast<const int64_t*>(pay_offs),
       static_cast<const int64_t*>(out_offs), static_cast<const uint8_t*>(letter_lut),
-      static_cast<uint8_t*>(out));
+      static_cast<uint8_t*>(out), n_reads, n_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -601,6 +601,38 @@ def twobit_tile_edges(tile: int = PACK_TILE_BYTES, seed: int = 23):
              lengths.astype(np.int64), lead) for label, lengths, lead in cases]
 
 
+UNPACK_TILE_LETTERS = 2048   # letters per unpack warp (kUnpackWarpTile in ops/csrc/twobit.cu)
+
+
+def twobit_letter_tile_edges(tile: int = UNPACK_TILE_LETTERS, seed: int = 31):
+    """Edge inputs of the unpack's warp tiles of ``tile`` letters, NumPy:
+    (label, payload u8 random bytes, lengths (N,) i64 letters, lead): the
+    reads' payloads, ceil(len/4) bytes each, are ``payload[lead:]`` end to
+    end, so that the first lies ``lead`` bytes into the buffer.  Reads of
+    0-7 letters; thousands of empty reads inside one tile; reads that end
+    exactly at tile boundaries; a read longer than two tiles; reads of one
+    letter, a payload byte each, so that a tile's payload is as long as its
+    letters; many short reads a tile and reads of ~2,000 letters, with the
+    payload 1, 13 and 15 bytes into its buffer."""
+    rng = np.random.default_rng(seed)
+    cases = [
+        ("reads of 0-7 letters", np.tile(np.arange(8), 40), 0),
+        ("runs of thousands of empty reads inside a tile",
+         np.array([5] + [0] * 3000 + [9, 0, 0, 13] + [0] * 2000 + [4]), 0),
+        ("reads that end at tile boundaries", np.array([tile, 4, tile - 4, 2 * tile, 3]), 0),
+        ("a read longer than two tiles", np.array([3, 2 * tile + 777, 5, 1]), 0),
+        ("reads of one letter (a payload byte a letter), the payload 15 bytes into the "
+         "buffer", np.ones(2 * tile + 100, np.int64), 15),
+        ("many short reads a tile, the payload 1 byte into the buffer",
+         rng.integers(0, 40, 800), 1),
+        ("reads of ~2,000 letters, the payload 13 bytes into the buffer",
+         rng.integers(1950, 2051, 2 * tile // 500 + 3), 13),
+    ]
+    return [(label, rng.integers(0, 256, lead + int(((lengths + 3) >> 2).sum()),
+                                 dtype=np.uint8), lengths.astype(np.int64), lead)
+            for label, lengths, lead in cases]
+
+
 EDGE_RCHAR = 102   # 'f': the run character (delChar) of run_edge_rows
 
 
@@ -695,6 +727,80 @@ def run_edge_rows(width: int = 9000, long_len: int = 0):
     if long_len:
         cases.append(case(f"rows of {long_len} symbols: runs of 65,535 and 65,536, "
                           "trailing runs over 65,535", *_long_lits(rng, long_len)))
+    return cases
+
+
+def token_planes(rows, lengths, rchar: int, pad: int = 16, extra: int = 0):
+    """The (runs, lits) token planes (N, T) i32 of delQV-like ``rows`` (N, L)
+    u8 up to ``lengths``, as the reference tokenizes them (Encode_Run,
+    ``ops.bitstream.tokenize_runs``): a token per literal with the run of
+    ``rchar`` before it, a trailing run without one (lit -1), then padding
+    tokens (0, -1); T the most tokens of a row rounded up to ``pad``, plus
+    ``extra``."""
+    from .ops.bitstream import tokenize_runs
+
+    toks = [tokenize_runs(rows[r, :lengths[r]], rchar) for r in range(len(lengths))]
+    t = max((len(x[0]) for x in toks), default=0)
+    t = -(-t // pad) * pad + extra
+    runs = np.zeros((len(toks), t), np.int32)
+    lits = np.full((len(toks), t), -1, np.int32)
+    for r, (rl, sym, has) in enumerate(toks):
+        runs[r, :len(rl)] = rl
+        lits[r, :len(rl)] = np.where(has, sym, -1)
+    return runs, lits
+
+
+def expand_edge_cases(width: int = 9000, long_len: int = 0, seed: int = 37):
+    """Edge inputs of K6 (ops/expand.expand_runs), NumPy: (label, runs (N, T)
+    i32, lits (N, T) i32, rchar, max_len, tag_bytes (N, TB) u8 or None).
+    The tokens (``token_planes``) of ``run_edge_rows(width, long_len)``'s
+    delQV rows: rows of 0-33 symbols, no literal, literals only at the ends,
+    runs of 255/256, dense rows, and with ``long_len`` runs of 65,535 and
+    65,536 in rows of that many symbols.  Each with random tag bytes whose
+    width stops short of the tokens (codes past 4 * TB read 0), at max_len
+    the width (rows wider than a window) and at width - 37 (literals past
+    max_len, a width no multiple of 16) with an odd token count and tag
+    width (loads without 16-byte alignment), and without tags; and rows of
+    sparse literals, four times as wide, with few tokens (a warp a row over
+    many windows); and runs up to 2^31 - 1, whose columns pass 2^30 (where
+    the kernel's column sums stop)."""
+    rng = np.random.default_rng(seed)
+    rc = EDGE_RCHAR
+
+    def tags(runs, short):
+        return rng.integers(0, 256, (runs.shape[0], max(runs.shape[1] // 4 - short, 0)),
+                            dtype=np.uint8)
+
+    label, data, lengths = run_edge_rows(width)[0][:3]
+    cases = []
+    runs, lits = token_planes(data[0], lengths, rc)
+    cases.append((f"{label}: tags", runs, lits, rc, width, tags(runs, 3)))
+    cases.append((f"{label}: no tags", runs, lits, rc, width, None))
+    runs, lits = token_planes(data[0], lengths, rc, extra=3)
+    cases.append((f"{label}: max_len {width - 37}, {runs.shape[1]} tokens, tags",
+                  runs, lits, rc, width - 37, tags(runs, 5)))
+    w4 = 4 * width
+    sparse = np.where(rng.random((8, w4)) < 0.004, rng.integers(33, 80, (8, w4)), rc)
+    sparse[0] = rc
+    sparse[1, ::997] = 40
+    slen = np.array([w4, w4, w4, w4 - 1, w4 // 3, 0, 1, w4], np.int64)
+    runs, lits = token_planes(sparse.astype(np.uint8), slen, rc)
+    cases.append((f"rows of {w4} symbols, sparse literals: tags", runs, lits, rc, w4,
+                  tags(runs, 0)))
+    huge = np.zeros((4, 5000), np.int32)
+    hl = np.full((4, 5000), -1, np.int32)
+    big = (1 << 31) - 1
+    huge[0, :4], hl[0, :4] = [3, big, 0, 7], [40, 41, 42, 43]
+    huge[1, :5], hl[1, :5] = [1 << 30, 1 << 30, 1, 0, 2], [44, -1, 45, 46, 47]
+    huge[2, 600:603], hl[2, :700] = big, rng.integers(33, 80, 700)
+    huge[3, 1:9], hl[3, :10] = [5, 0, 1, big, big, big, big, 9], np.arange(50, 60)
+    cases.append(("runs up to 2^31 - 1 (columns past 2^30), 5,000 tokens a row: tags", huge,
+                  hl, rc, 1000, tags(huge, 0)))
+    if long_len:
+        label, data, lengths = run_edge_rows(width, long_len)[-1][:3]
+        runs, lits = token_planes(data[0], lengths, rc)
+        cases.append((f"{label}: max_len {long_len - 37}, tags", runs, lits, rc,
+                      long_len - 37, tags(runs, 1)))
     return cases
 
 

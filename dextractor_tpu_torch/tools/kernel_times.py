@@ -1,5 +1,6 @@
-"""Device times of K1-K4, K7 and K9 at the main path's shapes, for the
-package (and the ``chip_smoke.py``) that the import path finds first.
+"""Device times of K1-K4, K6, K7, K9 and the 2-bit unpack at the main
+path's shapes, for the package (and the ``chip_smoke.py``) that the import
+path finds first.
 
 Run it as a file; with PYTHONPATH set to another checkout of the repository
 it times that checkout's kernels with that checkout's ``chip_smoke.device_ms``,
@@ -7,9 +8,9 @@ so two trees can be compared on one card in one go, in turns (other, this,
 this, other):
 
     PYTHONPATH=/path/to/other/checkout python3 dextractor_tpu_torch/tools/kernel_times.py
-    PYTHONPATH=. python3 dextractor_tpu_torch/tools/kernel_times.py [k1-k3] [k4] [k7] [k9]
+    PYTHONPATH=. python3 dextractor_tpu_torch/tools/kernel_times.py [k1-k3] [k4] [k6] [k7] [k9] [unpack]
 
-(the arguments pick the sets; none: all four).  Shapes: K1
+(the arguments pick the sets; none: all six).  Shapes: K1
 (``ops.emit.encode_plain``), K2 (``ops.emit.encode_run``) and K3
 (``ops.emit.pack_tags``) on the arguments that the encode step
 (``parallel.pipeline.qv_encode_step``) gives them for the uniform batch, K1
@@ -18,7 +19,11 @@ K3 for the widest bucket of the long-read batch; K4 (``ops.decode_chains.decode_
 on ins, mrg and sub of the decode phase split's batch at 16 MB
 (``tools/decode_ablate.py``) in one launch, and on ins alone; K7
 (``ops.pack2bit.pack2bit``) on the flat reads of the three 2-bit corpora
-(``testing.uniform_fasta``, ``long_fasta``, ``uniform_arrow``).  Each
+(``testing.uniform_fasta``, ``long_fasta``, ``uniform_arrow``), and the
+unpack (``ops.pack2bit.unpack2bit``) on K7's payloads of them; K6
+(``ops.expand.expand_runs``) with the delTag codes on K5's tokens of the
+uniform batch and of the long-read batch's widest bucket on the per-read
+route (its 8 rows, and its widest row alone).  Each
 output is checked against the kernel's twin; each time is the mean device
 time per launch over 20 launches, L2 flushed before each, and warm.  K9
 (``ops.lut``) is timed by what its launches do, since a tree may take a
@@ -136,6 +141,76 @@ def _k7_times(dev, times):
     return out
 
 
+def _unpack_times(dev, times):
+    """The 2-bit unpack at the shapes of the three 2-bit corpora, on K7's
+    payloads, checked against its twin."""
+    import chip_smoke
+    import numpy as np
+    from dextractor_tpu_torch.formats.fasta import parse_seq_file
+    from dextractor_tpu_torch.ops import pack2bit as pk
+    from dextractor_tpu_torch.ops import twobit as tb
+    from dextractor_tpu_torch.testing import long_fasta, uniform_arrow, uniform_fasta
+
+    out = {}
+    for name, text, arrow in (("uniform .fasta", uniform_fasta(), False),
+                              ("long-read .fasta", long_fasta(), False),
+                              (".arrow", uniform_arrow(), True)):
+        f = parse_seq_file(text, arrow=arrow)
+        lengths = f.seqs.lengths.astype(np.int64)
+        a = chip_smoke._twobit_args(f.seqs.flat, lengths,
+                                    tb.NUMBER_ARROW_LUT if arrow else tb.NUMBER_BASE_LUT, dev)
+        letters = torch.from_numpy(tb.ARROW_LETTER_LUT if arrow else tb.LOWER_LUT).to(dev)
+        u = (pk.pack2bit(*a), a[2], a[1] - a[1][0], letters, int(lengths.sum()))
+        if not torch.equal(pk.unpack2bit(*u), tb.unpack2bit_twin(u[0], u[2].diff(), letters)):
+            raise AssertionError(f"unpack2bit ({name}) disagrees with its twin")
+        out[f"unpack2bit ({name}, {len(lengths)} reads, {u[4]} letters)"] = times(
+            lambda: pk.unpack2bit(*u), "unpack2bit_kernel")
+    return out
+
+
+def _k6_times(dev, times):
+    """K6 with the delTag codes on the tokens K5 gives it: the uniform batch's
+    decode shapes, and the long-read batch's widest bucket on the per-read
+    route (its rows and the widest row alone), checked against its twin."""
+    import numpy as np
+    from dextractor_tpu_torch.codecs.qv_batch import span_buckets
+    from dextractor_tpu_torch.codecs.qv_codec import _index_native, encode_quiva_to_dexqv
+    from dextractor_tpu_torch.formats import dexqv as dq
+    from dextractor_tpu_torch.ops import decode2 as d2
+    from dextractor_tpu_torch.ops import decode_chains as dch
+    from dextractor_tpu_torch.ops import expand
+    from dextractor_tpu_torch.testing import batch_to, decode_batch, long_quiva, uniform_quiva
+
+    out = {}
+    for name, q in (("uniform", uniform_quiva()), ("long reads", long_quiva())):
+        dexqv = encode_quiva_to_dexqv(q, device=False)
+        args, kw = decode_batch(dexqv)
+        rd, tg, _, _, _, rl, sids, f1, f2, types, dc, _ = batch_to(args, dev)
+        sig, sw = d2.channel_params(sids, types, kw["subw"], kw["chan_l2"])
+        runs, lits, _, _ = dch.decode_run(rd, rl, f1[sids[1]], f1[sids[0]], f2, sig[0],
+                                          max_tokens=kw["max_tokens"], subw=max(sw[0], sw[1]),
+                                          lmax=kw["lmax"])
+        sets = {"uniform": slice(None)}
+        if name != "uniform":
+            coding, off = dq.parse_qvcoding(memoryview(dexqv), 2)
+            _, _, _, _, _, _, coffs, ntoks = _index_native(dexqv, coding, off, True)
+            kws = span_buckets(np.asarray(coffs, np.int64))
+            sel = np.flatnonzero(kws == kws.max())
+            top = int(np.argmax(np.asarray(ntoks)[:, 0]))
+            sets = {f"widest per-read bucket, {len(sel)} rows": torch.from_numpy(sel).to(dev),
+                    "widest per-read row": slice(top, top + 1)}
+        for label, rows in sets.items():
+            a = (runs[rows].contiguous(), lits[rows].contiguous(), dc)
+            k = dict(max_len=kw["max_len"], tag_bytes=tg[rows].contiguous())
+            got, ref = expand.expand_runs(*a, **k), expand.expand_runs_ref(*a, **k)
+            if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                raise AssertionError(f"expand_runs ({label}) disagrees with its twin")
+            out[f"expand_runs ({label}, {tuple(a[0].shape)} tokens, max_len "
+                f"{kw['max_len']}, tags)"] = times(lambda: expand.expand_runs(*a, **k),
+                                                   "expand_runs_kernel")
+    return out
+
+
 def main() -> int:
     import chip_smoke
     import dextractor_tpu_torch
@@ -152,9 +227,10 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_times needs a CUDA device")
-    sets = set(sys.argv[1:]) or {"k1-k3", "k4", "k7", "k9"}
-    if sets - {"k1-k3", "k4", "k7", "k9"}:
-        raise SystemExit(f"unknown sets {sorted(sets)}: k1-k3, k4, k7, k9")
+    every = {"k1-k3", "k4", "k7", "k9", "unpack", "k6"}
+    sets = set(sys.argv[1:]) or every
+    if sets - every:
+        raise SystemExit(f"unknown sets {sorted(sets)}: {', '.join(sorted(every))}")
     dev = torch.device("cuda")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     out = {"card": card_line(dev), "package": dextractor_tpu_torch.__path__[0],
@@ -216,6 +292,10 @@ def main() -> int:
                 lambda: dch.decode_plain(*a, **dkw), "decode_plain_kernel")
     if "k7" in sets:
         out.update(_k7_times(dev, times))
+    if "unpack" in sets:
+        out.update(_unpack_times(dev, times))
+    if "k6" in sets:
+        out.update(_k6_times(dev, times))
     if "k9" in sets:
         route, encode = _k9_times(long, dev, flush)
         out["lut_gather (widest long-read bucket's emission route: summed ms a call, "

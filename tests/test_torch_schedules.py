@@ -1012,3 +1012,313 @@ def test_lut_gather_group_schedule(tile, threads):
     for (d, k, _), out in zip(groups, got):
         ref = bt.lut_gather_plain(torch.from_numpy(d), torch.from_numpy(luts[k]))
         np.testing.assert_array_equal(out, ref.numpy().reshape(-1).astype(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# The 2-bit unpack: warp tiles of the flat letter output, the tile's reads
+# from a window of offsets a read a lane (else a k-ary search), 16 letters a
+# group from one funnel shift of two payload words and four byte permutations
+# ---------------------------------------------------------------------------
+
+def _byte_perm(x, y, sel):
+    """__byte_perm: output byte i is byte (sel >> 4i) & 7 of y:x."""
+    b = (x & M32) | ((y & M32) << 32)
+    return sum(((b >> (8 * ((sel >> (4 * i)) & 7))) & 255) << (8 * i) for i in range(4))
+
+
+def _brev(x):
+    return int(f"{x & M32:032b}"[::-1], 2)
+
+
+def _spread(h):
+    """Sixteen bits of 2-bit fields to nibbles, field i in nibble i."""
+    h = (h | (h << 8)) & 0x00FF00FF
+    h = (h | (h << 4)) & 0x0F0F0F0F
+    return (h | (h << 2)) & 0x33333333
+
+
+def unpack2bit_warp_tiles(payload, pay_offs, out_offs, lut, lanes, groups, addr0, rng, seen):
+    """The unpack kernel's schedule: a warp a tile of 16 * lanes * groups
+    letters, groups of 16 letters (one 16-byte store), ``groups`` a lane,
+    ``lanes`` groups apart.  The warp loads the letter and payload offsets
+    of a window of ``lanes`` reads around the estimated read of its first
+    letter (reads past the last read n_out); where the window holds the
+    reads of the tile's first and last letters, each group finds its read
+    by a binary search of the lanes' offsets (shuffles), else the tile's
+    two reads come from a k-ary search of all reads with ``lanes`` probes a
+    round and each group searches between them (``_read_at``).  A group of
+    16 letters of one read takes its codes from the aligned 32-bit word
+    that holds their first payload byte and the next one (``addr0``: the
+    address of payload[0] mod 16; bytes outside the buffer are garbage, and
+    the next word is read only when it holds some of the codes), bit-
+    reversed, spread to selector nibbles and looked up by four byte
+    permutations of the letter table with each code's two bits swapped;
+    else it goes letter by letter, a payload byte each, and searches again
+    where it crosses into a later read.  Every letter must be written
+    once."""
+    pay_offs, out_offs = np.asarray(pay_offs).tolist(), np.asarray(out_offs).tolist()
+    n, n_out = len(out_offs) - 1, out_offs[-1]
+    wtile = 16 * lanes * groups
+    lut32 = sum(int(v) << (8 * i) for i, v in enumerate(lut))
+    lut_sw = _byte_perm(lut32, 0, 0x3120)
+    out = np.full(n_out, -1, np.int64)
+    garbage = {}
+
+    def byte(a):   # the byte at address a (payload[0] at addr0)
+        i = a - addr0
+        if 0 <= i < len(payload):
+            return int(payload[i])
+        return garbage.setdefault(a, int(rng.integers(0, 256)))
+
+    def word(a):   # the aligned 32-bit word at a, its first byte in bits 31-24
+        assert a % 4 == 0
+        return (byte(a) << 24) | (byte(a + 1) << 16) | (byte(a + 2) << 8) | byte(a + 3)
+
+    def read_codes(src, q, k):
+        """16 codes of a read from its code q on, of which the first k are
+        the read's (its payload from src); the next word only where it holds
+        some of those k."""
+        at = addr0 + src + (q >> 2)
+        sh = 8 * (at & 3) + 2 * (q & 3)
+        hi = word(at & ~3)
+        lo = 0
+        if sh + 2 * k > 32:
+            # the next word holds the last of the k codes: a byte of the read
+            assert (at & ~3) + 4 <= addr0 + src + ((q + k - 1) >> 2)
+            lo = word((at & ~3) + 4)
+        return (((hi << 32) | lo) >> (32 - sh)) & M32
+
+    for j0 in range(0, n_out, wtile):
+        j1 = min(j0 + wtile, n_out)
+        top = max(n - lanes, 0)
+        g = min(max(int(j0 / n_out * n) - lanes // 2, 0), top)
+        for attempt in range(2):
+            e = [out_offs[min(g + i, n)] for i in range(lanes)]
+            p = [pay_offs[min(g + i, n)] for i in range(lanes)]
+            e_next = out_offs[min(g + lanes, n)]
+            na = sum(v <= j0 for v in e)
+            nb = sum(v <= j1 - 1 for v in e)
+            win = na >= 1 and (nb < lanes or e_next > j1 - 1)
+            if win or attempt:
+                break
+            seen["second windows"] += 1
+            if na == 0:
+                g = int(j0 / e[0] * g) - lanes // 2
+            elif na < lanes:
+                g = g + na - 1
+            else:
+                g = g + lanes - 1 + int((j0 - e[-1]) / (n_out - e[-1]) * (n - g - lanes + 1)) \
+                    - lanes // 2
+            g = min(max(g, 0), top)
+        if win:
+            seen["window"] += 1
+            ra, rb = g + na - 1, g + nb - 1
+        else:
+            seen["k-ary"] += 1
+            ra, rb = (_kary_read(out_offs, n, j, lanes) for j in (j0, j1 - 1))
+        for lane in range(lanes):
+            for gi in range(groups):
+                jg = j0 + 16 * (lane + lanes * gi)
+                if jg >= j1:
+                    continue
+                o2 = src1 = None
+                if win:
+                    lo, hi = na - 1, nb - 1
+                    for _ in range((nb - na).bit_length()):
+                        mid = (lo + hi + 1) >> 1
+                        if e[mid] <= jg:
+                            lo = mid
+                        else:
+                            hi = mid - 1
+                    assert lo == hi
+                    r, o, src = g + lo, e[lo], p[lo]
+                    o1 = e[lo + 1] if lo < lanes - 1 else e_next
+                    if lo < lanes - 1:
+                        src1 = p[lo + 1]
+                        o2 = e[lo + 2] if lo < lanes - 2 else e_next
+                else:
+                    r = _read_at(out_offs, ra, rb, jg)
+                    o, o1, src = out_offs[r], out_offs[r + 1], pay_offs[r]
+                assert o <= jg < o1 and r == np.searchsorted(out_offs[:n], jg, "right") - 1
+                nl = min(16, j1 - jg)
+                ka = min(o1 - jg, 16)
+                if nl == 16 and (ka == 16 or (o2 is not None and o2 - jg >= 16)):
+                    c = read_codes(src, jg - o, ka)
+                    if ka < 16:
+                        keep = M32 >> (2 * ka)
+                        c = (c & ~keep & M32) | (read_codes(src1, 0, 16 - ka) >> (2 * ka))
+                    c16 = _brev(c)
+                    lo16, hi16 = _spread(c16 & 0xFFFF), _spread(c16 >> 16)
+                    w = [_byte_perm(lut_sw, 0, s) for s in (lo16, lo16 >> 16, hi16, hi16 >> 16)]
+                    got = [(w[i >> 2] >> (8 * (i & 3))) & 255 for i in range(16)]
+                    seen["groups of two reads"] += ka < 16
+                else:
+                    got = []
+                    for i in range(nl):
+                        jl = jg + i
+                        if jl >= o1:
+                            r = _read_at(out_offs, r + 1, rb, jl)
+                            o, o1, src = out_offs[r], out_offs[r + 1], pay_offs[r]
+                        q = jl - o
+                        got.append(int(lut[(int(payload[src + (q >> 2)]) >> (6 - 2 * (q & 3))) & 3]))
+                assert (out[jg:jg + nl] == -1).all()
+                out[jg:jg + nl] = got
+    assert (out >= 0).all()
+    return out
+
+
+@pytest.mark.parametrize("addr0", [0, 9])
+@pytest.mark.parametrize("lanes, groups", [(4, 1), (8, 2)])
+@pytest.mark.parametrize("case", range(7))
+def test_unpack2bit_tile_schedule(case, lanes, groups, addr0):
+    """testing.twobit_letter_tile_edges at warp tiles of 64 and 256 letters
+    (reads of 0-7 letters, thousands of empty reads inside a tile, reads
+    that end at tile boundaries, a read longer than two tiles, reads of one
+    letter, payloads 1, 13 and 15 bytes into their buffer), with the buffer
+    at an aligned address and 9 bytes past one, and a random letter table,
+    against ops.twobit.unpack2bit_twin: every letter."""
+    from dextractor_tpu_torch.ops.twobit import unpack2bit_twin
+    from dextractor_tpu_torch.testing import twobit_letter_tile_edges
+
+    tile = 16 * lanes * groups
+    label, payload, lengths, lead = twobit_letter_tile_edges(tile)[case]
+    rng = np.random.default_rng(case + tile + addr0)
+    lut = rng.integers(0, 256, 4).astype(np.uint8)
+    pay_offs = lead + np.concatenate([[0], np.cumsum((lengths + 3) >> 2)])
+    out_offs = np.concatenate([[0], np.cumsum(lengths)])
+    ref = unpack2bit_twin(torch.from_numpy(payload[lead:]), torch.from_numpy(lengths),
+                          torch.from_numpy(lut)).numpy()
+    seen = {"window": 0, "k-ary": 0, "groups of two reads": 0, "second windows": 0}
+    got = unpack2bit_warp_tiles(payload, pay_offs, out_offs, lut, lanes, groups, addr0, rng,
+                                seen)
+    np.testing.assert_array_equal(got, ref.astype(np.int64), err_msg=label)
+    if case in (1, 4):   # thousands of empty reads, reads of one letter: windows miss
+        assert seen["k-ary"] and seen["second windows"]
+    if case == 6:        # reads of ~2,000 letters: every window holds its tile
+        assert seen["window"] and not seen["k-ary"] and seen["groups of two reads"]
+
+
+# ---------------------------------------------------------------------------
+# K6: slices of a row's tokens a warp, several warps a row chained by a scan
+# of the slices' sums, each slice's columns built in windows and written once
+# ---------------------------------------------------------------------------
+
+def expand_runs_windows(runs, lits, rchar, max_len, tag_bytes, row_warps, lanes,
+                        lane_tokens, win, cap=1 << 30):
+    """The K6 kernel's schedule: ``row_warps`` warps a row of ``lanes`` lanes;
+    a round gives each warp a slice of lanes * lane_tokens tokens,
+    ``lane_tokens`` consecutive ones a lane (with their lane_tokens / 4 tag
+    bytes, 0 past the row's); a warp scan of the lanes' run sums and the
+    sums of the round's earlier slices give the slice's first column; a
+    round that starts at or past max_len ends the row.  Token k owns the
+    columns [cumsum(runs)[k-1] + k, cumsum(runs)[k] + k], so a slice owns
+    one span of columns, which its warp builds in windows of ``win``
+    columns (rchar and -1, then the literals and tag letters) and writes
+    once; the columns past the last token's are split among the row's
+    warps in parts of a multiple of 16.  Run sums stop at ``cap`` (>=
+    max_len and the token count), as the kernel's 32-bit sums stop at
+    2^30.  Every column must be written once."""
+    assert max_len <= cap and runs.shape[1] <= cap
+
+    def add(x, y):
+        return min(x + y, cap)
+
+    n, t = runs.shape
+    wt = lanes * lane_tokens
+    rows = np.full((n, max_len), -1, np.int64)
+    tags = None if tag_bytes is None else np.full((n, max_len), -2, np.int64)
+    tw = 0 if tag_bytes is None else tag_bytes.shape[1]
+    letters = b"acgt"
+
+    def put(r, c0, vals, tvals):
+        assert (rows[r, c0:c0 + len(vals)] == -1).all()
+        rows[r, c0:c0 + len(vals)] = vals
+        if tags is not None:
+            tags[r, c0:c0 + len(vals)] = tvals
+
+    for r in range(n):
+        carry, k0 = 0, 0
+        while k0 < t:
+            if carry + k0 >= max_len:
+                break
+            lane_runs, sums = [], []
+            for part in range(row_warps):
+                ks = [k0 + part * wt + lane * lane_tokens for lane in range(lanes)]
+                lr = [[min(int(runs[r, k + i]), cap) if k + i < t else 0
+                       for i in range(lane_tokens)] for k in ks]
+                lane_runs.append((ks, lr))
+                sums.append(functools.reduce(add, [functools.reduce(add, x, 0) for x in lr], 0))
+            for part, (ks, lr) in enumerate(lane_runs):
+                before = functools.reduce(add, sums[:part], carry)
+                a = k0 + part * wt
+                if a >= t:
+                    continue
+                b = min(a + wt, t)
+                lo, hi = before + a, min(add(before, sums[part]) + b, max_len)
+                excl = [0]
+                for x in lr:
+                    excl.append(add(excl[-1], functools.reduce(add, x, 0)))
+                for c0 in range(lo, hi, win):
+                    m = min(hi - c0, win)
+                    buf, tbuf = [rchar & 0xFF] * m, [-1] * m
+                    for lane, k in enumerate(ks):
+                        code = 0
+                        for j in range(lane_tokens // 4):
+                            code = (code << 8) | (int(tag_bytes[r, (k >> 2) + j])
+                                                  if tw and (k >> 2) + j < tw else 0)
+                        col = add(before, excl[lane])
+                        for i in range(lane_tokens):
+                            col = add(col, lr[lane][i])
+                            x = col + k + i - c0
+                            lit = int(lits[r, k + i]) if k + i < t else -1
+                            if lit >= 0 and 0 <= x < m:
+                                buf[x] = lit & 0xFF
+                                sh = 2 * (lane_tokens - 1 - i)
+                                tbuf[x] = letters[(code >> sh) & 3]
+                    put(r, c0, buf, tbuf)
+            carry = functools.reduce(add, sums, carry)
+            k0 += row_warps * wt
+        tail = carry + min(k0, t)
+        if tail < max_len:
+            per = -(-(-(-(max_len - tail) // row_warps)) // 16) * 16
+            for part in range(row_warps):
+                f, to = tail + part * per, min(tail + (part + 1) * per, max_len)
+                if f < to:
+                    put(r, f, [rchar & 0xFF] * (to - f), [-1] * (to - f))
+    assert (rows >= 0).all() and (tags is None or (tags >= -1).all())
+    return rows, tags
+
+
+@functools.lru_cache(maxsize=None)
+def _expand_cases():
+    from dextractor_tpu_torch.testing import expand_edge_cases
+
+    return expand_edge_cases(1200)
+
+
+@pytest.mark.parametrize("row_warps, lanes, lane_tokens, win, cap", [
+    (1, 4, 4, 64, 1 << 30), (1, 8, 8, 256, 5000), (3, 4, 4, 64, 5000),
+    (3, 4, 8, 256, 1 << 30)])
+@pytest.mark.parametrize("case", range(5))
+def test_expand_runs_window_schedule(case, row_warps, lanes, lane_tokens, win, cap):
+    """testing.expand_edge_cases at width 1,200 (the tokens of
+    run_edge_rows' delQV rows: rows of 0-33 symbols, no literal, literals
+    only at the ends, runs of 255/256, dense rows; with tag bytes that stop
+    short of the tokens, without tags, at max_len 1,163 with literals past
+    it and an odd token count; sparse rows of 4,800 symbols over many
+    windows; runs up to 2^31 - 1) with one warp a row and three, windows of
+    64 and 256 columns, run sums that stop at 2^30 and at 5,000, against
+    ops.expand.expand_runs_ref: every row and tag column."""
+    from dextractor_tpu_torch.ops.expand import expand_runs_ref
+
+    label, runs, lits, rchar, max_len, tb = _expand_cases()[case]
+    ref_r, ref_t = expand_runs_ref(torch.from_numpy(runs), torch.from_numpy(lits), rchar,
+                                   max_len=max_len,
+                                   tag_bytes=None if tb is None else torch.from_numpy(tb))
+    got_r, got_t = expand_runs_windows(runs, lits, rchar, max_len, tb, row_warps, lanes,
+                                       lane_tokens, win, cap)
+    np.testing.assert_array_equal(got_r, ref_r.numpy().astype(np.int64), err_msg=label)
+    if tb is None:
+        assert ref_t is None and got_t is None
+    else:
+        np.testing.assert_array_equal(got_t, ref_t.numpy().astype(np.int64), err_msg=label)
