@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU: the .dexqv encode and
-decode paths, the 2-bit codecs (.dexta, .dexar) and the decode step's
-phase split (tools/decode_ablate.py).
+decode paths, the 2-bit codecs (.dexta, .dexar), the decode step's
+phase split (tools/decode_ablate.py), and dextract, dex2DB and the Dazzler
+DB's QV load.
 
 Run from the repository root on a machine with an sm_90 card:
 
@@ -94,7 +95,20 @@ Phases, each printing one line (or a few) before the final JSON lines:
 12. decode phase split: the port's tools/decode_ablate.py at --mb 16 in
    process (the fused step, the delQV run chains, one plain channel, the
    run expansion, and the delTag prep with K10), its ABLATE line; its tag
-   phase launched K10 and no twin ran.
+   phase launched K10 and no twin ran;
+13. Dazzler DB: whether libhdf5 loads; BAMs of the uniform batch (1,600
+   reads of 1,950-2,050, seed 0) and of the log-normal long-read batch
+   (seed 2) written by testing.make_bam; dextract -f -q -a and dex2DB -q on
+   each, and a DB of both (two cells, two codings); DazzDB.load_all_qventries
+   on the card through the fused route with the qvchk track (ascii modes 0,
+   1 and 2 on the two-cell DB), the fused route after the track is deleted
+   (the native lens walk) and the per-scheme route (DXT_DB_FUSED=0, modes
+   0, 1 and 2), each against the streams of the .quiva files dextract
+   wrote and, once a DB and route, against the host per-read load_qventry
+   on every 25th read, with its host-clock seconds and stages beside those
+   of the per-read loader; the fused route launched K4 on three channels at once, K5 and
+   K6, the per-scheme route K4 on one channel at a time, K5 and K6, and no
+   twin ran.
 
 Each kernel is timed, at the main path's shapes, as device time per call
 from a torch.profiler trace (``ms``, with L2 flushed before each launch, as
@@ -1529,6 +1543,172 @@ def phase_decode_ablate(device, mb: int = 16):
     return launches, twins
 
 
+def db_corpora():
+    """(name, BAM image) of the DB phase: the uniform batch and the
+    log-normal long-read batch of PERF.md section 4 as PacBio subreads BAMs."""
+    import numpy as np
+    from dextractor_tpu_torch import testing
+
+    n = testing.BENCH_MB * 1_000_000 // (5 * testing.UNIFORM_READ_LEN)
+    r = testing.UNIFORM_READ_LEN
+    return [("uniform", testing.make_bam(np.random.default_rng(0), n_reads=n,
+                                         min_len=r - 50, max_len=r + 50, level=1)[0]),
+            ("long_reads", testing.make_bam(np.random.default_rng(2),
+                                            lengths=testing.lognormal_lengths(),
+                                            level=1)[0])]
+
+
+@contextlib.contextmanager
+def db_route(route: str):
+    """Within the block, DazzDB.load_all_qventries takes ``route``: "fused"
+    (the default, the qvchk track), "walk" (the fused route on the native
+    lens walk: the DB's track files must be gone) or "scheme"
+    (DXT_DB_FUSED=0).  Yields the channel counts of every decode_plain
+    call."""
+    from dextractor_tpu_torch.ops import decode_chains
+
+    chans = []
+    saved = (os.environ.get("DXT_DB_FUSED"), decode_chains.decode_plain)
+
+    def counted(rects, *args, **kw):
+        chans.append(len(rects))
+        return saved[1](rects, *args, **kw)
+
+    os.environ["DXT_DB_FUSED"] = "0" if route == "scheme" else "1"
+    decode_chains.decode_plain = counted
+    try:
+        yield chans
+    finally:
+        env, decode_chains.decode_plain = saved
+        if env is None:
+            os.environ.pop("DXT_DB_FUSED", None)
+        else:
+            os.environ["DXT_DB_FUSED"] = env
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _tag_mode(streams, mode: int):
+    """Five ascii-mode-1 streams with the delTag in ``mode`` (db/access.py)."""
+    from dextractor_tpu_torch.ops import twobit as tb
+
+    out = streams.copy()
+    if mode == 2:
+        out[1] = out[1] - 32
+    elif mode == 0:
+        out[1] = tb.NUMBER_BASE_LUT[out[1]]
+    return out
+
+
+def phase_db(device, bams, every: int = 25):
+    """dextract and dex2DB on the BAM images ``bams`` [(name, image)], then
+    every route of DazzDB.load_all_qventries on ``device``, held against the
+    .quiva streams dextract wrote and the host per-read loader.  Returns
+    {route: (launch counts, twin calls)}."""
+    import tempfile
+
+    import numpy as np
+    from dextractor_tpu_torch.cli import main as tool
+    from dextractor_tpu_torch.db import open_db
+    from dextractor_tpu_torch.formats.quiva import parse_quiva
+    from dextractor_tpu_torch.native import hdf5_shim
+    from dextractor_tpu_torch.utils import dispatch
+    from dextractor_tpu_torch.utils.profiling import REPORTER
+
+    try:
+        hdf5_shim()
+        log("[db] libhdf5 loaded (the .bax.h5 reader can run on this host)")
+    except OSError as e:
+        log(f"[db] libhdf5 did not load ({e}); the DB phase reads BAMs only")
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        streams = {}
+        for name, image in bams:
+            bam = os.path.join(d, f"{name}.subreads.bam")
+            with open(bam, "wb") as f:
+                f.write(image)
+            t0 = time.perf_counter()
+            if tool(["dextract", "-f", "-q", "-a", "-eln>=0", bam]) != 0:
+                raise AssertionError(f"dextract failed on {name}")
+            t1 = time.perf_counter()
+            if tool(["dex2DB", "-q", "-eln>=0", os.path.join(d, name), bam]) != 0:
+                raise AssertionError(f"dex2DB failed on {name}")
+            t2 = time.perf_counter()
+            with open(os.path.join(d, f"{name}.quiva"), "rb") as f:
+                q = parse_quiva(f.read())
+            streams[name] = q.streams
+            log(f"[db] {name}: {len(image)} byte BAM, {q.n_entries} reads, "
+                f"{int(q.lengths.sum())} symbols/channel; dextract -f -q -a "
+                f"{t1 - t0:.3f} s, dex2DB -q {t2 - t1:.3f} s (host clock)")
+        names = [n for n, _ in bams]
+        t0 = time.perf_counter()
+        if tool(["dex2DB", "-q", "-eln>=0", os.path.join(d, "both"),
+                 *(os.path.join(d, f"{n}.subreads.bam") for n in names)]) != 0:
+            raise AssertionError("dex2DB failed on the two-cell DB")
+        log(f"[db] both: dex2DB -q of {len(names)} cells {time.perf_counter() - t0:.3f} s")
+        streams["both"] = np.concatenate([streams[n] for n in names], 1)
+
+        def load(db_name, route, mode):
+            db = open_db(os.path.join(d, db_name))
+            db.open_qvs()
+            if len(db._qv.codings) != (len(names) if db_name == "both" else 1):
+                raise AssertionError(f"{db_name}: {len(db._qv.codings)} codings")
+            dispatch.reset_counts()
+            REPORTER.stages.clear()
+            REPORTER.enabled = True
+            with db_route(route) as chans:
+                t0 = time.perf_counter()
+                got, rl = db.load_all_qventries(mode, device=device)
+                t1 = time.perf_counter()
+            REPORTER.enabled = False
+            launches, twins = _counts()
+            want = _tag_mode(streams[db_name], mode)
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"{db_name} ({route} route, ascii mode {mode}): "
+                                     "streams differ from the .quiva dextract wrote")
+            off = np.concatenate([[0], np.cumsum(rl)])
+            t2 = time.perf_counter()
+            # the per-read loader, a Python bit reader, once a DB and route
+            sample = range(0, db.nreads, every) if (db_name, route) not in checked else ()
+            checked.add((db_name, route))
+            for i in sample:
+                if not np.array_equal(db.load_qventry(i, mode), got[:, off[i]:off[i + 1]]):
+                    raise AssertionError(f"{db_name} ({route} route, ascii mode {mode}): "
+                                         f"read {i} differs from load_qventry")
+            t3 = time.perf_counter()
+            # the fused route decodes ins, mrg (and plain sub) in one K4
+            # launch, the per-scheme route one channel a launch
+            if not chans or (min(chans) < 2 if route != "scheme" else set(chans) != {1}):
+                raise AssertionError(f"{route} route: decode_plain took {chans} channels")
+            walked = "index walk" in REPORTER.stages
+            if walked != (route == "walk"):
+                raise AssertionError(f"{route} route: the native lens walk "
+                                     f"{'ran' if walked else 'did not run'}")
+            loader = (f", and on one read in {every} to load_qventry (host per-read "
+                      f"loader {t3 - t2:.3f} s for {len(sample)} reads, "
+                      f"{int(rl[::every].sum())} symbols/channel)" if sample else "")
+            log(f"[db] {db_name} ({route} route, ascii mode {mode}): {got.shape[1]} "
+                f"symbols/channel of {db.nreads} reads identical to the .quiva{loader}; "
+                f"device {t1 - t0:.3f} s (host clock), stages (s): {_stage_line()}; "
+                f"launches {_nonzero(launches)}, twin calls {_nonzero(twins)}, "
+                f"decode_plain channels a call {sorted(set(chans))}")
+            return launches, twins
+
+        checked = set()
+        for name in names:
+            res[f"fused {name}"] = load(name, "fused", 1)
+        for mode in (0, 1, 2):
+            res[f"fused both {mode}"] = load("both", "fused", mode)
+        for ext in ("anno", "data"):
+            os.remove(os.path.join(d, f".both.qvchk.{ext}"))
+        res["walk both 1"] = load("both", "walk", 1)
+        for mode in (0, 1, 2):
+            res[f"scheme both {mode}"] = load("both", "scheme", mode)
+    return res
+
+
 def _path_launches(path, launches, twins, kernels):
     missing = [k for k in kernels if launches.get(k, 0) <= 0]
     if missing or any(twins.values()):
@@ -1569,6 +1749,8 @@ def main() -> int:
     a_launches, a_twins = phase_decode_ablate("cuda")
     _path_launches("decode phase split", a_launches, a_twins, ("tag_route",))
     launches["tag_route"] = a_launches["tag_route"]
+    for route, (l_, t_) in phase_db(True, db_corpora()).items():
+        _path_launches(f"DB QV load ({route})", l_, t_, DECODE_KERNELS)
     bad = [m for m in sys.modules if m in ("jax", "dextractor_tpu")
            or m.startswith(("jax.", "dextractor_tpu."))]
     if bad:

@@ -1,14 +1,17 @@
 """Command-line tools of the port, mirroring the reference suite.
 
-Each tool is runnable as ``python -m dextractor_tpu_torch <tool>``.  Six of
-the reference's eight are ported; ``dextract`` and ``dex2DB`` are not yet.
+Each tool is runnable as ``python -m dextractor_tpu_torch <tool>``: all
+eight of the reference suite, the ``.dexqv`` and 2-bit codecs, ``dextract``
+(PacBio BAM/SAM/.bax.h5 to .fasta/.arrow/.quiva) and ``dex2DB`` (a Dazzler
+DB from the same inputs).
 """
 
 from __future__ import annotations
 
 import sys
 
-TOOLS = ("dexta", "undexta", "dexar", "undexar", "dexqv", "undexqv")
+TOOLS = ("dexta", "undexta", "dexar", "undexar", "dexqv", "undexqv",
+         "dextract", "dex2DB")
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,5 +1,5 @@
 """Batched .dexqv entry decode on one device
-(``dextractor_tpu/codecs/qv_batch.py``: the fused single-coding path).
+(``dextractor_tpu/codecs/qv_batch.py``).
 
 A .dexqv entry is five butted Huffman streams (QV.c:1381-1426); once the
 native lens walk has given every entry's offset, its channel offsets and
@@ -12,9 +12,17 @@ When a second lens walk has recorded checkpoints every ``seg`` symbols
 (``qv_codec._index_checkpoints``), every read decodes instead as chains of
 at most ``seg`` symbols, all live segments of all reads in one flat launch
 set (``build_seg_launch_flat``, ``fused_decode_entries_seg``,
-``ops/decode2.decode_entry_batch_seg``).  Not ported: the JAX module's
-bucketed segment layout (``DXT_SEG_FLAT=0``: ``seg_read_buckets``,
-``build_seg_launch``, ``_pad_seg_args``) and its ``mesh`` argument.
+``ops/decode2.decode_entry_batch_seg``).
+
+``batch_decode_entries`` is the per-scheme route of a Dazzler DB's QV load
+(``db/access.py``), taken when no channel offsets can be had or with
+``DXT_DB_FUSED=0``: it decodes from each entry's start alone, channel after
+channel, the reads of each coding in one launch per rectangle width (K4b,
+K5, K6), so a DB of several codings decodes in one call.
+
+Not ported: the JAX module's bucketed segment layout (``DXT_SEG_FLAT=0``:
+``seg_read_buckets``, ``build_seg_launch``, ``_pad_seg_args``) and its
+``mesh`` arguments.
 """
 
 from __future__ import annotations
@@ -286,3 +294,149 @@ def fused_decode_entries_seg(buf, starts, rlens, coffs, ntoks, coding, ck,
             torch.cuda.synchronize(out.device)
     with stage("D2H+flat"):
         return out.cpu().numpy()
+
+
+def _rect_width(spans: np.ndarray) -> np.ndarray:
+    """Per-read pow2 rectangle width in u32 words for byte spans ``spans``
+    (16 words of slack; at least 64), the JAX package's ``_kw_buckets``."""
+    return np.maximum(64, 2 ** np.ceil(np.log2(np.maximum(
+        np.asarray(spans, np.int64) // 4 + 16, 1))).astype(np.int64))
+
+
+def batch_decode_entries(buf: np.ndarray, starts: np.ndarray, rlens: np.ndarray,
+                         codings, table: np.ndarray, ascii_mode: int = 1, *,
+                         device: torch.device):
+    """Decode all five QV streams of N entries of several codings: the
+    per-scheme route of the JAX package's ``batch_decode_entries``.
+
+    buf (B,) u8 container image; starts (N,) byte offset of each entry's
+    delQV stream; rlens (N,) symbols per entry; codings a list of
+    QVCoding, table (N,) each entry's coding index.  Only ``starts`` is
+    known: each later stream of an entry starts where the one before ends,
+    by the encoder's word-count rule (``decode2.stream_word_counts``) on the
+    chain's ``bits`` and ``last``, so the channels decode in turn, delQV,
+    delTag, insQV, mergeQV, subQV.  In every channel the reads are grouped
+    by coding (one scheme each) and by the pow2 width of the rectangle their
+    entries' bytes need, one launch a group: K4b (``decode_plain`` with C =
+    1) for a plain channel, K5 (``decode_run``) and K6 (``expand_runs``) for
+    an RLE one.  The delTag's packed bytes follow delQV: K6 places their
+    letters beside delQV's literals, or, with delQV plain, they are unpacked
+    in place.  On the CPU the wrappers run the kernels' plain twins.
+
+    Returns (rows (5, N, max_len) u8 host rows, valid up to each entry's
+    length, rlens (N,) i64); ``ascii_mode`` sets the delTag's letters (1
+    lower case, 2 upper case, 0 the numeric codes 0-3)."""
+    from ..ops import decode_chains, expand
+    from ..ops import twobit as tb
+
+    n = len(starts)
+    rlens = np.asarray(rlens, np.int32)
+    starts = np.asarray(starts, np.int64)
+    max_len = bucket_len(int(rlens.max(initial=0)), 512)
+    buf = np.concatenate([np.asarray(buf, np.uint8), np.zeros(8, np.uint8)])
+    tbl = np.asarray(table, np.int64)
+
+    schemes = []
+
+    def sidx(s):
+        if s is None:
+            return -1
+        schemes.append(s)
+        return len(schemes) - 1
+
+    # (del, drun, ins, mrg, sub, srun) scheme ids of each coding
+    sids = [[sidx(s) for s in (c.del_scheme, c.drun_scheme, c.ins_scheme,
+                               c.mrg_scheme, c.sub_scheme, c.srun_scheme)]
+            for c in codings]
+    f1, f2, subw, lmax = d2.scheme_tables2(schemes)
+    sig = [255 if s.type == 2 else 256 for s in schemes]
+    sw = [subw if ((f1[k] >> 20) & 1).any() else 0 for k in range(len(schemes))]
+    f1_d = torch.from_numpy(f1).to(device)
+    f2_d = torch.from_numpy(f2).to(device)
+    # an entry's byte span (to the next entry's start) bounds each stream
+    entry_ends = np.concatenate([starts[1:], [len(buf)]])
+    out = torch.zeros((5, n, max_len), dtype=torch.uint8, device=device)
+
+    def groups(chan_starts):
+        """(coding, reads, rectangle width, max_len): one launch each."""
+        kws = _rect_width(entry_ends - chan_starts)
+        for ci in np.unique(tbl):
+            for kw in np.unique(kws[tbl == ci]):
+                sel = np.flatnonzero((tbl == ci) & (kws == kw))
+                ml = bucket_len(int(rlens[sel].max(initial=0)), 512)
+                yield int(ci), sel, int(kw), ml
+
+    def chains(chan, ci, sel, kw, ml, chan_starts):
+        """Channel ``chan`` (0 del, 2 ins, 3 mrg, 4 sub) of the reads
+        ``sel``: K4b for a plain stream, K5 for an RLE one.  Returns (symbol
+        rows (n_g, ml) u8 or the tokens (runs, lits), the run character or
+        -1, the stream's u32 words (n_g,) i64 on the host)."""
+        coding = codings[ci]
+        rchar = {0: coding.del_char, 4: coding.sub_char}.get(chan, -1)
+        s = sids[ci][chan]
+        with stage("rects"):
+            rect = torch.from_numpy(
+                d2.build_entry_rect(buf, chan_starts[sel], kw).view(np.int32)).to(device)
+            rl = torch.from_numpy(rlens[sel]).to(device)
+        with stage("step"):
+            if rchar < 0:
+                syms, bits, last = decode_chains.decode_plain(
+                    [rect], rl, f1_d[s:s + 1], f2_d, [sig[s]], [sw[s]],
+                    max_len=ml, lmax=lmax)
+                got, bits, last = syms[0], bits[0], last[0]
+            else:
+                r = sids[ci][chan + 1]
+                runs, lits, bits, last = decode_chains.decode_run(
+                    rect, rl, f1_d[r], f1_d[s], f2_d, sig[s], max_tokens=ml,
+                    subw=max(sw[s], sw[r]), lmax=lmax)
+                got = (runs, lits)
+            words = d2.stream_word_counts(bits.cpu().numpy(), last.cpu().numpy())
+        return got, rchar, words
+
+    in_read = (torch.arange(max_len, device=device)[None, :]
+               < torch.from_numpy(rlens).to(device)[:, None])
+    # phase A: delQV, then the packed delTag after its last word, whose
+    # length is the read's kept (non-delChar) symbols
+    tag_starts = np.zeros(n, np.int64)
+    clens = rlens.astype(np.int64)
+    for ci, sel, kw, ml in groups(starts):
+        got, rchar, words = chains(0, ci, sel, kw, ml, starts)
+        tag_starts[sel] = starts[sel] + 4 * words
+        with stage("rects"):
+            idx = tag_starts[sel][:, None] + np.arange(max(ml // 4, 1))
+            tag_b = torch.from_numpy(buf[np.minimum(idx, len(buf) - 1)]).to(device)
+            idx = torch.from_numpy(sel).to(device)
+        with stage("step"):
+            inr = in_read[idx, :ml]
+            if rchar < 0:
+                rows = got
+                tag_rows = d2._tag_letters(d2._unpack_tag_codes(tag_b, ml)).to(torch.uint8)
+            else:
+                rows, tags = expand.expand_runs(*got, rchar, max_len=ml, tag_bytes=tag_b)
+                tag_rows = torch.where(tags >= 0, tags.to(torch.uint8),
+                                       inr.to(torch.uint8) * ord("n"))
+                clens[sel] = ((rows != rchar) & inr).sum(1).cpu().numpy()
+            out[0, idx, :ml] = rows
+            out[1, idx, :ml] = tag_rows
+    # phases B-D: ins, mrg and sub, each starting where the one before ends
+    chan_starts = tag_starts + ((clens + 3) >> 2)
+    for chan in (2, 3, 4):
+        nxt = np.zeros(n, np.int64)
+        for ci, sel, kw, ml in groups(chan_starts):
+            got, rchar, words = chains(chan, ci, sel, kw, ml, chan_starts)
+            with stage("step"):
+                rows = got if rchar < 0 else expand.expand_runs(*got, rchar, max_len=ml)[0]
+                out[chan, torch.from_numpy(sel).to(device), :ml] = rows
+            nxt[sel] = chan_starts[sel] + 4 * words
+        chan_starts = nxt
+    with stage("step"):
+        out = torch.where(in_read, out, 0)
+        if out.device.type == "cuda":
+            torch.cuda.synchronize(out.device)
+    with stage("D2H+flat"):
+        rows = out.cpu().numpy()
+    if ascii_mode == 2:
+        rows[1] = rows[1] - 32
+    elif ascii_mode == 0:
+        rows[1] = tb.NUMBER_BASE_LUT[rows[1]]
+    return rows, rlens.astype(np.int64)

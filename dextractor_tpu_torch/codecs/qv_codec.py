@@ -514,19 +514,35 @@ def _walk_tables(coding: dq.QVCoding):
     return lookups, lens, types, sid
 
 
-def _index_native(data: bytes, coding: dq.QVCoding, off: int, newv: bool):
+def _rlens_args(rl):
+    """The walker's last two arguments: the headerless mode's read lengths
+    and their count, or (None, 0) to parse entry headers."""
+    return (None, 0) if rl is None else (_ptr(rl), len(rl))
+
+
+def _rlens_i64(rlens):
+    return None if rlens is None else np.ascontiguousarray(np.asarray(rlens, np.int64))
+
+
+def _index_native(data: bytes, coding: dq.QVCoding, off: int, newv: bool,
+                  rlens=None):
     """Lens-only native walk: resolve the bit-serial entry chain without
     materialising any stream (QV.c:1381-1426: every stream's byte length is
     known only after decoding it).  Returns (wells, begs, ends, qvs, entry
     offsets, entry lengths, channel offsets (ne, 5), run-token counts
-    (ne, 2)), or None when the walker's shim cannot build."""
+    (ne, 2)), or None when the walker's shim cannot build.
+
+    ``rlens``: headerless mode for a Dazzler DB's .qvs payload (DB.c:2575-2621:
+    butted five-stream entries whose read lengths are in the .idx); the walk
+    takes these lengths instead of parsing entry headers."""
     try:
         lib = qv_decode_shim()
     except OSError:
         return None
     lookups, lens, types, sid = _walk_tables(coding)
     buf = np.frombuffer(data, np.uint8)
-    cap = max(len(buf) // (13 if newv else 7) + 2, 16)
+    rl = _rlens_i64(rlens)
+    cap = max(len(rl), 1) if rl is not None else max(len(buf) // (13 if newv else 7) + 2, 16)
     wells, begs, ends_, qvs = (np.zeros(cap, np.int32) for _ in range(4))
     eoffs, elens = np.zeros(cap, np.int64), np.zeros(cap, np.int64)
     coffs = np.zeros(5 * cap, np.int32)
@@ -536,7 +552,7 @@ def _index_native(data: bytes, coding: dq.QVCoding, off: int, newv: bool):
         _ptr(sid), coding.del_char, coding.sub_char, int(newv), cap, 1 << 62,
         _ptr(wells), _ptr(begs), _ptr(ends_), _ptr(qvs), _ptr(eoffs),
         _ptr(elens), None, 0, _ptr(coffs), _ptr(ntoks),
-        0, 0, None, None, None, None, None, 0)
+        0, 0, None, None, None, None, *_rlens_args(rl))
     if ne < 0:
         raise FormatError(f"corrupt .dexqv stream (native walker: {ne})")
     ne = int(ne)
@@ -549,13 +565,14 @@ SEG_DECODE = 2048
 
 
 def _index_checkpoints(data: bytes, coding: dq.QVCoding, off: int, newv: bool,
-                       elens: np.ndarray, seg: int = SEG_DECODE):
+                       elens: np.ndarray, seg: int = SEG_DECODE, rlens=None):
     """Second lens-only native walk recording per-channel segment
     checkpoints every ``seg`` symbols (bit offsets, run-literal ranks and
     run carries), so that long reads decode as many short chains
     (qv_batch.fused_decode_entries_seg).  ``elens`` are the entry lengths
-    of the first walk.  Returns (seg, ck_offs (ne+1,) i64, ckb (4, B) i32,
-    ckt (2, B) i32, ckc (2, B) i32), or None when no read crosses ``seg``."""
+    of the first walk; ``rlens`` the headerless mode of ``_index_native``.
+    Returns (seg, ck_offs (ne+1,) i64, ckb (4, B) i32, ckt (2, B) i32, ckc
+    (2, B) i32), or None when no read crosses ``seg``."""
     ne = len(elens)
     nb = np.maximum((np.asarray(elens, np.int64) + seg - 1) // seg - 1, 0)
     btot = int(nb.sum())
@@ -571,12 +588,13 @@ def _index_checkpoints(data: bytes, coding: dq.QVCoding, off: int, newv: bool,
     buf = np.frombuffer(data, np.uint8)
     wells, begs, ends_, qvs = (np.zeros(ne, np.int32) for _ in range(4))
     eoffs, elens2 = np.zeros(ne, np.int64), np.zeros(ne, np.int64)
+    rl = _rlens_i64(rlens)
     ne2 = lib.dxt_qv_walk(
         _ptr(buf), len(buf), off, _ptr(lookups), _ptr(lens), _ptr(types),
         _ptr(sid), coding.del_char, coding.sub_char, int(newv), ne, 1 << 62,
         _ptr(wells), _ptr(begs), _ptr(ends_), _ptr(qvs), _ptr(eoffs),
         _ptr(elens2), None, 0, None, None,
-        seg, btot, _ptr(ck_offs), _ptr(ckb), _ptr(ckt), _ptr(ckc), None, 0)
+        seg, btot, _ptr(ck_offs), _ptr(ckb), _ptr(ckt), _ptr(ckc), *_rlens_args(rl))
     if int(ne2) != ne:
         raise FormatError("checkpoint walk entry-count mismatch")
     return seg, ck_offs, ckb.reshape(4, btot), ckt.reshape(2, btot), ckc.reshape(2, btot)

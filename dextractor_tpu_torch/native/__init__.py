@@ -1,6 +1,6 @@
 """Native host-side helpers, built on demand with gcc.
 
-The port's own copy of the four shims of ``dextractor_tpu/native/`` that
+The port's own copy of the five shims of ``dextractor_tpu/native/`` that
 its paths need, from copies of their C sources in this directory:
 ``qv_encode.c`` (the host channel encoder, the byte oracle of the device
 encode, plus ragged copies and the scan histograms), ``qv_decode.c`` (the
@@ -8,9 +8,11 @@ sequential entry walker: the host decoder, the lens walk that gives the
 device decoder its entry boundaries, and the .quiva text assembler),
 ``twobit_host.c`` (the host 2-bit pack and wrapped-text unpack, the byte
 oracle of the 2-bit device path, and the one-pass .fasta/.arrow line scan)
-and ``dexta_index.c`` (the .dexta/.dexar entry walker).  Each is compiled
-once into ``native/build/`` and loaded with ctypes; a shim that cannot
-build raises OSError.
+``dexta_index.c`` (the .dexta/.dexar entry walker) and ``hdf5_shim.c``
+(the .bax.h5 reader's access to libhdf5, resolved at run time with
+dlopen).  Each is compiled once into ``native/build/`` and loaded with
+ctypes; a shim that cannot build, or libhdf5 that cannot load, raises
+OSError.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ _BUILD = os.path.join(_DIR, "build")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_LINK = {"hdf5_shim": ["-ldl"]}      # libraries a shim links beyond libc
 
 
 def _build_shim(name: str):
@@ -36,7 +39,7 @@ def _build_shim(name: str):
         # compile to a private temp then os.replace: concurrent builders
         # (parallel pytest workers) must never dlopen a half-written .so
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = ["gcc", "-O2", "-shared", "-fPIC", src, "-o", tmp]
+        cmd = ["gcc", "-O2", "-shared", "-fPIC", src, "-o", tmp, *_LINK.get(name, [])]
         r = subprocess.run(cmd, capture_output=True, text=True)
         if r.returncode != 0:
             try:
@@ -88,6 +91,20 @@ _DEXTA = {
     "dxt_dexta_walk": (_LL, [_P, _LL, _LL, _I, _LL, _P, _P, _P, _P, _P, _P, _P]),
 }
 
+_CS = ctypes.c_char_p
+_PLL = ctypes.POINTER(ctypes.c_longlong)
+_HDF5 = {
+    "dxt_h5_init": (_I, [_CS]),
+    "dxt_h5_open": (_LL, [_CS]),
+    "dxt_h5_close": (None, [_LL]),
+    "dxt_h5_dataset_dims": (_I, [_LL, _CS, _PLL, _I]),
+    "dxt_h5_read": (_I, [_LL, _CS, _I, _P]),
+    "dxt_h5_attr_str": (_I, [_LL, _CS, _CS, _CS, _I]),
+    "dxt_h5_create": (_LL, [_CS]),
+    "dxt_h5_write": (_I, [_LL, _CS, _I, _P, _PLL, _I]),
+    "dxt_h5_attr_str_write": (_I, [_LL, _CS, _CS, _CS]),
+}
+
 _LIBS: dict = {}
 
 
@@ -120,3 +137,16 @@ def dexta_index_shim():
     """The .dexta/.dexar entry walker (raises OSError when it cannot
     build)."""
     return _shim("dexta_index", _DEXTA)
+
+
+
+def hdf5_shim():
+    """The HDF5 dlopen shim with libhdf5 loaded (raises OSError when the
+    shim cannot build or libhdf5 cannot load)."""
+    lib = _LIBS.get("hdf5_shim")
+    if lib is None:
+        lib = _declare(_build_shim("hdf5_shim"), _HDF5)
+        if lib.dxt_h5_init(b"") != 0:
+            raise OSError("libhdf5 could not be initialized")
+        _LIBS["hdf5_shim"] = lib
+    return lib

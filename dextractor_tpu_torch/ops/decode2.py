@@ -92,6 +92,21 @@ def build_entry_rect(buf: np.ndarray, starts: np.ndarray, k_words: int):
     return np.ascontiguousarray(b).view(np.uint32)
 
 
+def stream_word_counts(total_bits: np.ndarray, last_gran: np.ndarray) -> np.ndarray:
+    """A stream's u32 word count from its chain's ``bits`` and ``last``: the
+    encoder's tail-padding rule (the JAX package's
+    ``ops/decode_jax.stream_word_counts``), so that the next stream of the
+    entry starts 4 bytes a word further on."""
+    t = np.asarray(total_bits).astype(np.int64)
+    last = np.asarray(last_gran).astype(np.int64)
+    olen = t & 31
+    llen = (t - last) & 31
+    raw = (t + 31) >> 5
+    dup = (olen > 0) & (llen > 16) & (olen > llen)
+    zext = (olen == 0) & (llen > 16) & (t > 0)
+    return raw + dup.astype(np.int64) + zext.astype(np.int64)
+
+
 # ---------------------------------------------------------------------------
 # chain primitives (int64 tensors, one element per chain)
 # ---------------------------------------------------------------------------

@@ -61,12 +61,17 @@ UPPER_LUT = np.frombuffer(b"ACGT", np.uint8).copy()
 ARROW_LETTER_LUT = np.frombuffer(b"1234", np.uint8).copy()
 
 
-def pack_2bit_np(codes: np.ndarray) -> np.ndarray:
+def pack_2bit_np(codes: np.ndarray, lengths: np.ndarray | None = None) -> np.ndarray:
     """Pack (N, L) numeric codes (values 0..3) into (N, L//4) bytes, the
-    first code in bits 7-6; L must be a multiple of 4."""
+    first code in bits 7-6; L must be a multiple of 4.  With ``lengths``
+    (N,), positions at or past a row's length pack as 0 (they may hold
+    padding garbage)."""
     n, l = codes.shape
     if l % 4:
         raise ValueError("pad L to a multiple of 4")
+    if lengths is not None:
+        col = np.arange(l, dtype=np.int64)
+        codes = np.where(col[None, :] < np.asarray(lengths)[:, None], codes, 0)
     quads = codes.reshape(n, l // 4, 4).astype(np.uint8)
     return (
         (quads[..., 0] << 6) | (quads[..., 1] << 4) | (quads[..., 2] << 2) | quads[..., 3]

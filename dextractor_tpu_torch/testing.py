@@ -3,7 +3,9 @@
 ``make_quiva``, ``make_fasta`` and ``make_arrow`` are copies of
 ``tests/conftest.py``'s (which cannot be imported where JAX is absent: that
 conftest imports it) and give the same bytes for the same generator state;
-``make_fasta`` also takes explicit read lengths.  ``uniform_fasta``,
+``make_fasta`` also takes explicit read lengths.  ``make_bam`` is a copy of
+the same conftest's PacBio subreads BAM writer that also takes explicit read
+lengths, so ``chip_smoke.py`` builds its DB corpora as BAMs.  ``uniform_fasta``,
 ``long_fasta`` and ``uniform_arrow`` are the 2-bit codecs' corpora of
 ``chip_smoke.py``.  ``lognormal_lengths`` is
 ``bench.py::lognormal_lengths``.  ``step_batch`` builds the arguments of
@@ -119,6 +121,77 @@ def make_arrow(rng, n_reads=20, min_len=0, max_len=700, movie=b"m130205_1210_42"
         for j in range(0, rlen, width):
             lines.append(seq[j:j + width].tobytes())
     return b"\n".join(lines) + b"\n"
+
+
+_BAM_SEQ_CODE = np.zeros(256, np.uint8)          # base -> BAM 4-bit code
+for _i, _c in enumerate(b"=ACMGRSVTWYHKDBN"):
+    _BAM_SEQ_CODE[_c] = _i
+
+
+def make_bam(rng, n_reads=8, min_len=50, max_len=300, movie=b"m54238_180903_1",
+             with_qv=True, with_pw=True, gz=True, lengths=None, level=9):
+    """A minimal PacBio subreads BAM image (+ the expected per-record
+    fields): a copy of ``tests/conftest.py::make_bam`` that gives the same
+    bytes for the same generator state.  ``lengths`` overrides the uniform
+    [min_len, max_len] draw with explicit per-read lengths; ``level`` is
+    the gzip level of the image (9, as the copy's original)."""
+    import gzip
+    import struct
+
+    if lengths is not None:
+        n_reads = len(lengths)
+    recs = []
+    body = []
+    well = 0
+    for i in range(n_reads):
+        well += int(rng.integers(0, 3))
+        ln = (int(lengths[i]) if lengths is not None
+              else int(rng.integers(min_len, max_len + 1)))
+        beg = int(rng.integers(0, 100))
+        end = beg + ln
+        qname = b"%s/%d/%d_%d" % (movie, well, beg, end)
+        seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=ln).tobytes()
+        rq = float(np.float32(rng.uniform(0.6, 1.0)))
+        snr = rng.uniform(3, 12, 4).astype(np.float32)
+        pw = rng.integers(1, 7, ln).astype(np.uint8)
+        # dq/iq/mq/sq are FASTQ-encoded QVs; dt is a base tag (acgt + 'n')
+        dq = (rng.integers(33, 80, ln)).astype(np.uint8)
+        dt = rng.choice(np.frombuffer(b"acgt", np.uint8), size=ln)
+        dt[dq == 70] = ord("n")
+        qvs = [dq.tobytes(), dt.tobytes(),
+               bytes((rng.integers(33, 80, ln)).astype(np.uint8)),
+               bytes((rng.integers(33, 80, ln)).astype(np.uint8)),
+               bytes((rng.integers(33, 80, ln)).astype(np.uint8))]
+        tags = [b"qs" + b"i" + struct.pack("<i", beg),
+                b"qe" + b"i" + struct.pack("<i", end),
+                b"rq" + b"f" + struct.pack("<f", rq),
+                b"np" + b"i" + struct.pack("<i", int(rng.integers(1, 20))),
+                b"sn" + b"B" + b"f" + struct.pack("<i", 4) + snr.astype("<f4").tobytes()]
+        if with_pw:
+            tags.append(b"pw" + b"B" + b"C" + struct.pack("<i", ln) + pw.tobytes())
+        if with_qv:
+            tags += [t + b"Z" + v + b"\x00"
+                     for t, v in zip((b"dq", b"dt", b"iq", b"mq", b"sq"), qvs)]
+
+        idx = _BAM_SEQ_CODE[np.frombuffer(seq, np.uint8)]
+        packed = np.zeros((ln + 1) // 2, np.uint8)
+        packed[: (ln // 2)] = (idx[0:ln - 1:2] << 4) | idx[1:ln:2]
+        if ln % 2:
+            packed[-1] = idx[-1] << 4
+        rec = b"".join([struct.pack("<iiBBHHHiii", -1, -1, len(qname) + 1, 255, 0, 0,
+                                    4, ln, -1, -1),
+                        struct.pack("<i", 0), qname + b"\x00", packed.tobytes(),
+                        b"\xff" * ln, *tags])
+        body += [struct.pack("<i", len(rec)), rec]
+        recs.append(dict(qname=qname, well=well, beg=beg, end=end, ln=ln,
+                         seq=seq, rq=rq, snr=snr, pw=pw, qvs=qvs))
+
+    header_text = b"@HD\tVN:1.5\tSO:unknown\n"
+    bam = b"".join([b"BAM\x01", struct.pack("<i", len(header_text)), header_text,
+                    struct.pack("<i", 0), *body])
+    if gz:
+        bam = gzip.compress(bam, compresslevel=level)
+    return bam, recs
 
 
 def uniform_fasta(n_reads: int = 32_000) -> bytes:

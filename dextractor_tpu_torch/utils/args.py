@@ -2,9 +2,10 @@
 
 The reference parses flags with the ARG_INIT/ARG_FLAGS/ARG_NON_NEGATIVE
 macro family (reference DB.h:79-123): boolean single-letter flags may be
-ganged ("-vk"), an integer option takes its value right after the letter
-("-w80").  The port's own copy of ``dextractor_tpu/utils/args.py``, cut to
-the boolean flags and integer options that the ported tools take.
+ganged ("-vk"), a value option takes its value right after the letter
+("-w80", "-ofile", "-e'expr'").  The port's own copy of
+``dextractor_tpu/utils/args.py``, cut to the boolean flags, integer options
+and string options that the ported tools take.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ class ArgSpec:
     usage: str
     flags: str = ""              # ganged boolean flag letters, e.g. "vki"
     int_opts: dict = field(default_factory=dict)    # letter -> (name, default, min)
+    str_opts: dict = field(default_factory=dict)    # letter -> default
     help_lines: tuple = ()
 
 
@@ -36,9 +38,11 @@ def usage_exit(spec: ArgSpec) -> None:
 
 
 def parse_flags(spec: ArgSpec, argv: list[str]):
-    """Return (flags: dict[letter, bool], opts: dict[letter, int], positional)."""
+    """Return (flags: dict[letter, bool], opts: dict[letter, int or str],
+    positional)."""
     flags = {c: False for c in spec.flags}
     opts = {letter: default for letter, (_, default, _) in spec.int_opts.items()}
+    opts.update(spec.str_opts)
     positional = []
     for arg in argv:
         if arg.startswith("-") and len(arg) > 1:
@@ -56,6 +60,9 @@ def parse_flags(spec: ArgSpec, argv: list[str]):
                     sys.stderr.write(f"{spec.prog}: {name} must be {kind}\n")
                     raise ArgError(1)
                 opts[c] = v
+                continue
+            if c in spec.str_opts:
+                opts[c] = arg[2:]
                 continue
             for ch in arg[1:]:
                 if ch not in flags:

@@ -1,8 +1,8 @@
 """Path helpers with the semantics of the reference utilities.
 
-Mirrors the behavior of PathTo/Root/Catenate (reference DB.c:171-234) so
-CLI tools resolve arguments identically: ``root`` strips a trailing suffix
-only if it matches.  The port's own copy of ``dextractor_tpu/utils/paths.py``.
+Mirrors the behavior of PathTo/Root/Catenate/Numbered_Suffix (reference
+DB.c:171-246) so CLI tools resolve arguments identically: ``root`` strips a
+trailing suffix only if it matches.  The port's own copy of ``dextractor_tpu/utils/paths.py``.
 """
 
 from __future__ import annotations
@@ -31,3 +31,8 @@ def root(path: str, suffix: str) -> str:
 def catenate(*parts: str) -> str:
     """String concatenation (reference Catenate DB.c:218-234)."""
     return "".join(p for p in parts if p)
+
+
+def numbered_suffix(left: str, num: int, right: str) -> str:
+    """'left<num>right' (reference Numbered_Suffix DB.c:236-246)."""
+    return f"{left}{num}{right}"

@@ -86,9 +86,10 @@ def test_cli_dexqv(corpora, tmp_path):
 
 def test_port_imports_no_jax(tmp_path):
     """In a fresh interpreter: import every module of the port (ops.tag,
-    ops.bitstream and tools.decode_ablate among them) and chip_smoke, encode
-    and decode (.dexqv and .dexta) on the CPU, run the CLI (dexqv, dexta,
-    undexta), and rehearse
+    ops.bitstream, tools.decode_ablate, ingest, db, cli.dextract and
+    cli.dex2DB among them) and chip_smoke, load the HDF5 shim where libhdf5
+    is, encode and decode (.dexqv and .dexta) on the CPU, run the CLI (dexqv,
+    dexta, undexta), and rehearse
     every phase of chip_smoke on the CPU at the smallest sizes that reach
     each branch (the wrappers run their twins there; tests/test_torch_decode_*
     cover the decode at larger sizes).  Neither jax nor the JAX package may be imported."""
@@ -101,8 +102,14 @@ import dextractor_tpu_torch
 for m in pkgutil.walk_packages(dextractor_tpu_torch.__path__, "dextractor_tpu_torch."):
     if not m.name.endswith("__main__"):
         importlib.import_module(m.name)
-for m in ("ops.tag", "ops.bitstream", "tools.decode_ablate"):
+for m in ("ops.tag", "ops.bitstream", "tools.decode_ablate", "ingest.sam", "ingest.bax",
+          "db.access", "db.build", "db.qvtrack", "cli.dextract", "cli.dex2DB"):
     assert "dextractor_tpu_torch." + m in sys.modules
+from dextractor_tpu_torch.native import hdf5_shim
+try:
+    hdf5_shim()
+except OSError:
+    pass
 import chip_smoke
 from dextractor_tpu_torch.cli import main
 from dextractor_tpu_torch.codecs.qv_codec import decode_dexqv_to_quiva, encode_quiva_to_dexqv
@@ -146,6 +153,10 @@ tcases = [("uniform_fasta", fa, False),
           ("uniform_arrow", make_arrow(np.random.default_rng(0), n_reads=20), True)]
 chip_smoke.phase_twobit_kernels("cpu", tcases, long_len=600)
 chip_smoke.phase_twobit_slice("cpu", tcases)
+from dextractor_tpu_torch.testing import make_bam
+bams = [("uniform", make_bam(np.random.default_rng(0), n_reads=5, min_len=50, max_len=200)[0]),
+        ("long_reads", make_bam(np.random.default_rng(2), lengths=[300, 120])[0])]
+chip_smoke.phase_db("cpu", bams, every=2)
 print(sorted(m for m in sys.modules if m in ("jax", "dextractor_tpu")
              or m.startswith(("jax.", "dextractor_tpu."))))
 """
@@ -161,6 +172,8 @@ print(sorted(m for m in sys.modules if m in ("jax", "dextractor_tpu")
     assert "pack2bit tile edges" in r.stdout
     assert "equals the TAG rows of its full decode" in r.stdout
     assert "ABLATE: " in r.stdout and "[ablate] launches" in r.stdout
+    for route in ("fused", "walk", "scheme"):
+        assert f"[db] both ({route} route, ascii mode 1)" in r.stdout
 
 
 def test_chip_smoke_reads_ptxas():
