@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU: the .dexqv encode and
 decode paths, the 2-bit codecs (.dexta, .dexar), the decode step's
-phase split (tools/decode_ablate.py), and dextract, dex2DB and the Dazzler
-DB's QV load.
+phase split (tools/decode_ablate.py), dextract, dex2DB and the Dazzler
+DB's QV load, and the sharded pipeline.
 
 Run from the repository root on a machine with an sm_90 card:
 
@@ -108,7 +108,25 @@ Phases, each printing one line (or a few) before the final JSON lines:
    on every 25th read, with its host-clock seconds and stages beside those
    of the per-read loader; the fused route launched K4 on three channels at once, K5 and
    K6, the per-scheme route K4 on one channel at a time, K5 and K6, and no
-   twin ran.
+   twin ran;
+14. sharded pipeline (parallel/), reusing the corpora above: meshes of 1, 2
+   and 4 shards on cuda:0, each against its one-device or native
+   counterpart: sharded_scan_to_stats against scan_quiva on the uniform
+   and long-read .quiva; sharded_qv_encode against qv_encode_step on the
+   uniform rectangle (K1/K2, and its container against the native
+   encoder's) and the widest long-read bucket (K9/K8);
+   decode_dexqv_to_quiva(mesh=) of both .dexqv through the segmented and
+   the per-read route against the original; load_all_qventries(mesh=) of
+   the two-cell DB against the load without a mesh (one shard) on the
+   fused (lens walk) and the per-scheme route;
+   sharded_twobit_encode/decode of the uniform .fasta rows against one
+   shard; each with its host-clock seconds a shard count and a check that
+   its kernels, and no twin, ran; then a one-rank NCCL group (the scan and
+   one decode through its collectives) and two processes of
+   tools/multichip.py over gloo sharing the card, whose parts concatenated
+   must be the native encoder's file; the phase's wall seconds, and each
+   check's end after the phase's start.  Several shards on one card
+   measure the cost of sharding, not scaling.
 
 Each kernel is timed, at the main path's shapes, as device time per call
 from a torch.profiler trace (``ms``, with L2 flushed before each launch, as
@@ -133,9 +151,11 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1602,13 +1622,13 @@ def _tag_mode(streams, mode: int):
     return out
 
 
-def phase_db(device, bams, every: int = 25):
+def phase_db(device, bams, every: int = 25, workdir: str | None = None):
     """dextract and dex2DB on the BAM images ``bams`` [(name, image)], then
     every route of DazzDB.load_all_qventries on ``device``, held against the
-    .quiva streams dextract wrote and the host per-read loader.  Returns
-    {route: (launch counts, twin calls)}."""
-    import tempfile
-
+    .quiva streams dextract wrote and the host per-read loader.  The files
+    go to ``workdir`` when given (phase 14 loads the DB "both" again), else
+    to a temporary directory.  Returns {route: (launch counts, twin
+    calls)}."""
     import numpy as np
     from dextractor_tpu_torch.cli import main as tool
     from dextractor_tpu_torch.db import open_db
@@ -1623,7 +1643,8 @@ def phase_db(device, bams, every: int = 25):
     except OSError as e:
         log(f"[db] libhdf5 did not load ({e}); the DB phase reads BAMs only")
     res = {}
-    with tempfile.TemporaryDirectory() as d:
+    with contextlib.ExitStack() as stack:
+        d = workdir or stack.enter_context(tempfile.TemporaryDirectory())
         streams = {}
         for name, image in bams:
             bam = os.path.join(d, f"{name}.subreads.bam")
@@ -1716,6 +1737,248 @@ def _path_launches(path, launches, twins, kernels):
                              f"twin calls {twins}")
 
 
+@contextlib.contextmanager
+def _env(**values):
+    """Within the block, the environment variables ``values`` are set."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+SHARDS = (1, 2, 4)   # phase 14's meshes on one card
+DECODE_ROUTES = {"segmented": {}, "per_read": {"DXT_SEG_DECODE": "0"}}
+
+
+def phase_multichip(device, quivas, encoded, fasta: bytes, db: str, shards=SHARDS,
+                    backend: str = "nccl", timeout: int = 300, spawn: bool = True):
+    """The sharded pipeline (parallel/) on one device.  (a) Meshes of
+    ``shards`` shards: sharded_scan_to_stats against scan_quiva on each
+    .quiva of ``quivas`` [(name, image)]; sharded_qv_encode against
+    qv_encode_step on the uniform rectangle (K1/K2) and on the widest
+    long-read bucket (K9/K8), and the container assembled from the uniform
+    one against the native encoder; decode_dexqv_to_quiva(mesh=) on each
+    .dexqv of ``encoded`` [(name, original, image)] through the segmented
+    and per-read routes against the original; load_all_qventries(mesh=) of
+    the DB ``db`` against the call without a mesh on the fused and
+    per-scheme routes; sharded_twobit_encode/decode
+    of the .fasta rows of ``fasta`` against one shard.  On the card every
+    check launches its kernels and no twin.  (b) A one-rank process group
+    of ``backend``: the scan and one decode through its collectives.  (c)
+    Two processes of tools/multichip.py over gloo sharing the device, whose
+    parts concatenated must be the native encoder's file (unless ``spawn``
+    is false).  Returns {shards: kernel launches of the sharded decodes}."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from dextractor_tpu_torch.codecs.qv_codec import (
+        assemble_from_step, create_qvcoding, decode_dexqv_to_quiva, encode_quiva_to_dexqv,
+        scan_quiva)
+    from dextractor_tpu_torch.db import open_db
+    from dextractor_tpu_torch.formats.fasta import parse_seq_file
+    from dextractor_tpu_torch.formats.quiva import parse_quiva
+    from dextractor_tpu_torch.formats.ragged import pad_rows
+    from dextractor_tpu_torch.ops import twobit as tb
+    from dextractor_tpu_torch.ops.emit import fused_ok
+    from dextractor_tpu_torch.parallel import multihost
+    from dextractor_tpu_torch.parallel import pipeline as pl
+    from dextractor_tpu_torch.parallel.mesh import make_mesh
+    from dextractor_tpu_torch.testing import step_batch, widest_bucket_batch
+    from dextractor_tpu_torch.tools.multichip import rect_batch, stats_equal, step_outputs_equal
+    from dextractor_tpu_torch.utils import dispatch
+
+    card = on_card(device)
+    dev = torch.device("cuda", 0) if card else torch.device("cpu")
+    decode_launches = {k: dict.fromkeys(DECODE_KERNELS, 0) for k in shards}
+    t_phase = time.perf_counter()
+
+    def mlog(msg):
+        log(f"[multichip +{time.perf_counter() - t_phase:6.1f}s] {msg}")
+
+    def sync():
+        if card:
+            torch.cuda.synchronize(dev)
+
+    def run(label, kernels, fn, *args, **kw):
+        """fn(*args, **kw) with the counts set to 0 before and read after;
+        on the card each of ``kernels`` must launch and no twin run.
+        Returns (output, host-clock seconds, launches)."""
+        sync()
+        dispatch.reset_counts()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        sync()
+        seconds = time.perf_counter() - t0
+        launches, twins = _counts()
+        if card:
+            _path_launches(label, launches, twins, kernels)
+        return out, seconds, launches
+
+    def per_shards(label, kernels, check, fn_of_mesh, *args, **kw):
+        """``fn_of_mesh(mesh)(*args, **kw)`` on a mesh of each size, each
+        output held by ``check``; logs the seconds of each beside one
+        shard's and returns {shards: launches}."""
+        secs, counts = {}, {}
+        for k in shards:
+            out, secs[k], counts[k] = run(f"{label}, {k} shards", kernels,
+                                          fn_of_mesh(make_mesh(k, dev)), *args, **kw)
+            if not check(out):
+                raise AssertionError(f"{label}: {k} shards disagree")
+        mlog(f"{label}: equal on {list(shards)} shards; host-clock seconds "
+            + ", ".join(f"{k} shards {secs[k]:.4f}" for k in shards)
+            + f"; launches {_nonzero(counts[shards[-1]])} on {shards[-1]} shards")
+        return counts
+
+    # (a) scan
+    for name, quiva in quivas:
+        q, streams, lengths = rect_batch(quiva)
+        host = scan_quiva(q)
+        streams_d, lengths_d = (torch.from_numpy(x).to(dev) for x in (streams, lengths))
+        per_shards(f"sharded_scan_to_stats {name} ({tuple(streams.shape)})", (),
+                   lambda st: stats_equal(st, host),
+                   lambda m: lambda *a: pl.sharded_scan_to_stats(m, *a), streams_d, lengths_d)
+        del streams_d
+
+    # (a) encode: the uniform rectangle through K1/K2 (and its container
+    # against the native encoder's), the widest long-read bucket through
+    # K9/K8, K3 on both
+    q = parse_quiva(quivas[0][1])
+    coding = create_qvcoding(scan_quiva(q), q.prefix, False)
+    native = encode_quiva_to_dexqv(quivas[0][1], device=False)
+
+    def container_ok(out):
+        return assemble_from_step(out, coding, q.wells, q.begs, q.ends, q.qvs,
+                                  q.n_entries) == native
+
+    for name, (args, run_on), whole in (
+            (quivas[0][0], step_batch(quivas[0][1]), True),
+            (quivas[-1][0] + " widest bucket", widest_bucket_batch(quivas[-1][1]), False)):
+        width = args[0].shape[2]
+        kernels = (("encode_plain", "encode_run") if fused_ok(width) else
+                   ("lut_gather", "pack_words")) + ("pack_tags",)
+        d_args = [torch.from_numpy(a).to(dev) for a in args]
+        single = pl.qv_encode_step(*d_args, run_on=run_on)
+        per_shards(f"sharded_qv_encode {name} (streams {tuple(args[0].shape)}, run_on "
+                   f"{run_on}, {'K1/K2' if fused_ok(width) else 'K9/K8'}"
+                   f"{', its container equal to the native encoder' if whole else ''})",
+                   kernels, lambda o: step_outputs_equal(o, single) and (
+                       not whole or container_ok(o)),
+                   lambda m: pl.sharded_qv_encode(m, run_on), *d_args)
+
+    # (a) decode, every route
+    for name, data, enc in encoded:
+        for route, env in DECODE_ROUTES.items():
+            with _env(**env):
+                counts = per_shards(f"decode_dexqv_to_quiva {name} ({route} route)",
+                                    DECODE_KERNELS, lambda got: got == data,
+                                    lambda m: lambda e: decode_dexqv_to_quiva(e, mesh=m), enc)
+            for k, c in counts.items():
+                for kern in DECODE_KERNELS:
+                    decode_launches[k][kern] += c[kern]
+
+    # (a) the DB's QV load
+    d = open_db(db)
+    d.open_qvs()
+    for route in ("fused", "scheme"):
+        with _env(DXT_DB_FUSED="1" if route == "fused" else "0"):
+            want, rl = d.load_all_qventries(1, device=dev)
+            per_shards(f"load_all_qventries two-cell DB ({route} route, {d.nreads} reads)",
+                       DECODE_KERNELS, lambda got: np.array_equal(got[0], want),
+                       lambda m: lambda: d.load_all_qventries(1, mesh=m))
+
+    # (a) the 2-bit codec on the .fasta rows
+    seqs = parse_seq_file(fasta).seqs
+    rows = pad_rows(seqs.flat, seqs.lengths, align=4)
+    rows_d, lens_d = torch.from_numpy(rows).to(dev), torch.from_numpy(seqs.lengths).to(dev)
+    packed = pl.sharded_twobit_encode(make_mesh(1, dev))(rows_d, lens_d, tb.NUMBER_BASE_LUT)
+    per_shards(f"sharded_twobit_encode .fasta rows {rows.shape}", ("pack2bit",),
+               lambda got: torch.equal(got, packed),
+               lambda m: pl.sharded_twobit_encode(m), rows_d, lens_d, tb.NUMBER_BASE_LUT)
+    letters = pl.sharded_twobit_decode(make_mesh(1, dev))(packed, tb.LOWER_LUT)
+    inlen = np.arange(rows.shape[1])[None, :] < seqs.lengths[:, None]
+    if not np.array_equal(np.where(inlen, letters.cpu().numpy()[:, :rows.shape[1]], 0),
+                          np.where(inlen, tb.LOWER_LUT[tb.NUMBER_BASE_LUT[rows]], 0)):
+        raise AssertionError("sharded_twobit_decode does not give the .fasta's letters back")
+    per_shards(f"sharded_twobit_decode .fasta rows {tuple(packed.shape)}", ("unpack2bit",),
+               lambda got: torch.equal(got, letters),
+               lambda m: pl.sharded_twobit_decode(m), packed, tb.LOWER_LUT)
+
+    # (b) a one-rank group: the collectives through ``backend``
+    q_name, quiva = quivas[0]
+    name, data, enc = encoded[0]
+    q, streams, lengths = rect_batch(quiva)
+    multihost.init_group(f"127.0.0.1:{_free_port()}", 1, 0, backend)
+    try:
+        mesh = multihost.process_mesh(shards[-1], dev)
+        got_backend = dist.get_backend(mesh.group)
+        (stats, secs, _) = run("one-rank group scan", (), pl.sharded_scan_to_stats, mesh,
+                               torch.from_numpy(streams).to(dev), lengths)
+        got, dsecs, launches = run("one-rank group decode", DECODE_KERNELS,
+                                   decode_dexqv_to_quiva, enc, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    if got_backend != backend or not stats_equal(stats, scan_quiva(q)) or got != data:
+        raise AssertionError(f"one-rank {backend} group: backend {got_backend}, or the "
+                             "scan or the decode differs")
+    mlog(f"one-rank {backend} group, {shards[-1]} shards on {dev}: "
+        f"sharded_scan_to_stats {q_name} equals scan_quiva ({secs:.4f} s), "
+        f"decode_dexqv_to_quiva {name} equals the original ({dsecs:.4f} s, launches "
+        f"{_nonzero(launches)})")
+
+    # (c) two processes over gloo sharing the device
+    if not spawn:
+        log(f"[multichip] phase 14: {time.perf_counter() - t_phase:.1f} s wall, "
+            "no processes spawned")
+        return decode_launches
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, f"{q_name}.quiva")
+        with open(src, "wb") as f:
+            f.write(quiva)
+        coordinator = f"127.0.0.1:{_free_port()}"
+        cmd = [sys.executable, "-m", "dextractor_tpu_torch.tools.multichip", "--world", "2",
+               "--coordinator", coordinator, "--quiva", src, "--out", tmp,
+               "--device", str(dev), "--backend", "gloo"]
+        env = dict(os.environ, PYTHONPATH=REPO)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=REPO, env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        seconds = time.perf_counter() - t0
+        for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"multichip rank {r} exited {p.returncode}: {e[-3000:]}")
+        parts = b"".join(open(os.path.join(tmp, f"part{r}.bin"), "rb").read()
+                         for r in range(2))
+    if parts != native:
+        raise AssertionError("the two processes' parts differ from the native encoder's file")
+    mlog(f"two gloo processes on {dev} ({seconds:.1f} s with their start-up): "
+         f"parts of {q_name} concatenated equal the native encoder's file; "
+         + "; ".join(line for o, _ in outs for line in o.splitlines()
+                     if line.startswith("[multichip rank")))
+    log(f"[multichip] phase 14: {time.perf_counter() - t_phase:.1f} s wall")
+    return decode_launches
+
+
 def main() -> int:
     import torch
 
@@ -1749,8 +2012,18 @@ def main() -> int:
     a_launches, a_twins = phase_decode_ablate("cuda")
     _path_launches("decode phase split", a_launches, a_twins, ("tag_route",))
     launches["tag_route"] = a_launches["tag_route"]
-    for route, (l_, t_) in phase_db(True, db_corpora()).items():
-        _path_launches(f"DB QV load ({route})", l_, t_, DECODE_KERNELS)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_db_")
+    try:
+        for route, (l_, t_) in phase_db(True, db_corpora(), workdir=workdir).items():
+            _path_launches(f"DB QV load ({route})", l_, t_, DECODE_KERNELS)
+        decode_counts = phase_multichip(
+            "cuda", [("uniform", uniform), ("long_reads", long)],
+            [(encoded[i][0], encoded[i][1], encoded[i][3]) for i in (0, -1)],
+            tcases[0][1], os.path.join(workdir, "both"))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log("[multichip] decode kernel launches a shard count (both .dexqv, both routes): "
+        + json.dumps({str(k): v for k, v in decode_counts.items()}))
     bad = [m for m in sys.modules if m in ("jax", "dextractor_tpu")
            or m.startswith(("jax.", "dextractor_tpu."))]
     if bad:

@@ -1,4 +1,4 @@
-"""Batched .dexqv entry decode on one device
+"""Batched .dexqv entry decode on the device, over a mesh of its shards
 (``dextractor_tpu/codecs/qv_batch.py``).
 
 A .dexqv entry is five butted Huffman streams (QV.c:1381-1426); once the
@@ -12,7 +12,9 @@ When a second lens walk has recorded checkpoints every ``seg`` symbols
 (``qv_codec._index_checkpoints``), every read decodes instead as chains of
 at most ``seg`` symbols, all live segments of all reads in one flat launch
 set (``build_seg_launch_flat``, ``fused_decode_entries_seg``,
-``ops/decode2.decode_entry_batch_seg``).
+``ops/decode2.decode_entry_batch_seg``).  The JAX package's bucketed
+segment layout (``DXT_SEG_FLAT=0``) is not ported: on the H100 it decoded
+the same bytes slower than the flat layout on every corpus measured.
 
 ``batch_decode_entries`` is the per-scheme route of a Dazzler DB's QV load
 (``db/access.py``), taken when no channel offsets can be had or with
@@ -20,9 +22,12 @@ set (``build_seg_launch_flat``, ``fused_decode_entries_seg``,
 channel, the reads of each coding in one launch per rectangle width (K4b,
 K5, K6), so a DB of several codings decodes in one call.
 
-Not ported: the JAX module's bucketed segment layout (``DXT_SEG_FLAT=0``:
-``seg_read_buckets``, ``build_seg_launch``, ``_pad_seg_args``) and its
-``mesh`` arguments.
+Every entry point takes ``device`` or ``mesh`` (parallel/mesh.py); a
+device alone is a mesh of one shard on it.  The reads of every launch are
+split over the mesh's shards (parallel/pipeline's sharded decodes; on the
+per-scheme route the chains of each launch, as the JAX package's
+``_conv_dispatch``), and the shards' rows come back in shard order to the
+mesh's device before they are scattered and copied to the host.
 """
 
 from __future__ import annotations
@@ -32,7 +37,27 @@ import torch
 
 from ..formats.ragged import bucket_len, next_pow2
 from ..ops import decode2 as d2
+from ..parallel.mesh import Mesh, check_device, make_mesh
+from ..parallel.multihost import mesh_put
+from ..parallel.pipeline import sharded_decode_entry, sharded_decode_entry_seg
 from ..utils.profiling import stage
+
+
+def _mesh(device, mesh) -> Mesh:
+    """The mesh a decode runs over: ``mesh`` (a ``device`` that disagrees
+    raises), else one shard on ``device``."""
+    if mesh is not None:
+        check_device(mesh, device)
+        return mesh
+    if device is None:
+        raise TypeError("a decode needs a device or a mesh")
+    return make_mesh(1, device)
+
+
+def _synchronize(mesh):
+    for d in {mesh.devices[g] for g in mesh.local}:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def decode_tables_v2(coding):
@@ -109,13 +134,16 @@ def span_buckets(coffs) -> np.ndarray:
 
 def fused_decode_entries(buf: np.ndarray, starts: np.ndarray,
                          rlens: np.ndarray, coffs: np.ndarray,
-                         ntoks: np.ndarray, coding, device: torch.device):
-    """Single-coding batch decode through ``decode_entry_batch2`` on
-    ``device``: all five channels, run expansion and the delTag on the
-    device, one launch set per span bucket, every read one chain per
-    channel whatever its length.  Run chains are bounded by the lens walk's
-    exact token counts.  Returns (5, N, max_len) u8 host rows, max_len the
-    global quarter-octave bucket of the longest read."""
+                         ntoks: np.ndarray, coding, device=None, mesh=None):
+    """Single-coding batch decode through ``decode_entry_batch2`` over the
+    shards of ``mesh``, or on ``device`` alone
+    (parallel/pipeline.sharded_decode_entry): all five channels, run
+    expansion and the delTag on the device, one launch set per span bucket,
+    every read one chain per channel whatever its length.  Run chains are
+    bounded by the lens walk's exact token counts.  Returns (5, N, max_len)
+    u8 host rows, max_len the global quarter-octave bucket of the longest
+    read."""
+    mesh = _mesh(device, mesh)
     rlens = np.asarray(rlens, np.int32)
     starts = np.asarray(starts, np.int64)
     coffs_a = np.asarray(coffs, np.int64)
@@ -124,28 +152,24 @@ def fused_decode_entries(buf: np.ndarray, starts: np.ndarray,
     gmax_len = bucket_len(int(rlens.max(initial=0)), 512)
     sids, f1, f2, types, del_mode, sub_mode, subw, lmax = decode_tables_v2(coding)
     chan_l2 = tuple(bool(((f1[sids[k]] >> 20) & 1).any()) for k in range(6))
-    f1_d = torch.from_numpy(f1).to(device)
-    f2_d = torch.from_numpy(f2).to(device)
+    f1_d = torch.from_numpy(f1).to(mesh.device)
+    f2_d = torch.from_numpy(f2).to(mesh.device)
+    chars = (coding.del_char & 0xFF, coding.sub_char & 0xFF)
 
     def launch(sel):
         rl_b = rlens[sel]
-        max_len = bucket_len(int(rl_b.max(initial=0)), 512)
-        max_tokens = bucket_len(int(ntoks_a[sel].max(initial=0)), 16)
+        statics = dict(max_len=bucket_len(int(rl_b.max(initial=0)), 512),
+                       max_tokens=bucket_len(int(ntoks_a[sel].max(initial=0)), 16),
+                       del_mode=del_mode, sub_mode=sub_mode, subw=subw, lmax=lmax,
+                       chan_l2=chan_l2)
         with stage("rects"):
-            rects = channel_rects(buf, starts[sel], coffs_a[sel], max_len)
-            d = [torch.from_numpy(r.view(np.int32) if r.dtype == np.uint32 else r)
-                 .to(device) for r in rects]
-            rl_d = torch.from_numpy(rl_b).to(device)
+            rects = channel_rects(buf, starts[sel], coffs_a[sel], statics["max_len"])
         with stage("step"):
-            rows = d2.decode_entry_batch2(
-                *d, rl_d, sids, f1_d, f2_d, types, coding.del_char & 0xFF,
-                coding.sub_char & 0xFF, max_len=max_len, max_tokens=max_tokens,
-                del_mode=del_mode, sub_mode=sub_mode, subw=subw, lmax=lmax,
-                chan_l2=chan_l2)
-            if rows.device.type == "cuda":
-                torch.cuda.synchronize(rows.device)
+            rows = sharded_decode_entry(mesh, **statics)(*rects, rl_b, sids, f1_d, f2_d,
+                                                         types, *chars)
+            _synchronize(mesh)
         with stage("D2H+flat"):
-            return rows.cpu().numpy(), max_len
+            return rows.cpu().numpy(), statics["max_len"]
 
     kws = span_buckets(coffs_a)
     uniq = np.unique(kws)
@@ -260,13 +284,17 @@ def build_seg_launch_flat(buf, starts, rlens, coffs, ntoks, coding, ck):
 
 
 def fused_decode_entries_seg(buf, starts, rlens, coffs, ntoks, coding, ck,
-                             device: torch.device):
-    """Checkpoint-segmented batch decode on ``device``: every read runs as
-    chains of at most ``seg`` symbols, all live segments in one flat launch
-    set (``build_seg_launch_flat``, ``decode2.decode_entry_batch_seg``);
-    the (5, NS, seg_w) segment rows are scattered to read rows by (read,
-    segment) on the device.  Returns (5, N, max_len) u8 host rows, max_len
-    the quarter-octave bucket of the longest read."""
+                             device=None, mesh=None):
+    """Checkpoint-segmented batch decode over the shards of ``mesh``, or on
+    ``device`` alone: every read runs as chains of at most ``seg`` symbols,
+    all live segments in one flat launch set (``build_seg_launch_flat``,
+    parallel/pipeline.sharded_decode_entry_seg,
+    ``decode2.decode_entry_batch_seg``); the (5, NS, seg_w) segment rows
+    are scattered to read rows by (read, segment) on the mesh's device.
+    Returns (5, N, max_len) u8 host rows, max_len the quarter-octave bucket
+    of the longest read."""
+    mesh = _mesh(device, mesh)
+    device = mesh.device
     rlens = np.asarray(rlens, np.int32)
     n = len(starts)
     gmax_len = bucket_len(int(rlens.max(initial=0)), 512)
@@ -276,22 +304,19 @@ def fused_decode_entries_seg(buf, starts, rlens, coffs, ntoks, coding, ck,
     with stage("rects"):
         args, statics, rid, kseg = build_seg_launch_flat(buf, starts, rlens, coffs,
                                                          ntoks, coding, ck)
-        d = [torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
-             .to(device) for a in args]
         f1_d = torch.from_numpy(f1).to(device)
         f2_d = torch.from_numpy(f2).to(device)
         rid_d = torch.from_numpy(rid).to(device)
     with stage("step"):
-        rows = d2.decode_entry_batch_seg(
-            *d, sids, f1_d, f2_d, types, coding.del_char & 0xFF,
-            coding.sub_char & 0xFF, subw=subw, lmax=lmax, chan_l2=chan_l2, **statics)
+        rows = sharded_decode_entry_seg(mesh, subw=subw, lmax=lmax, chan_l2=chan_l2,
+                                        **statics)(
+            *args, sids, f1_d, f2_d, types, coding.del_char & 0xFF, coding.sub_char & 0xFF)
         out = torch.zeros((5, n, gmax_len), dtype=torch.uint8, device=device)
         for k in np.unique(kseg):
             m = torch.from_numpy(np.flatnonzero(kseg == k)).to(device)
             w = min(rows.shape[2], gmax_len - int(k) * seg)
             out[:, rid_d[m], int(k) * seg:int(k) * seg + w] = rows[:, m, :w]
-        if out.device.type == "cuda":
-            torch.cuda.synchronize(out.device)
+        _synchronize(mesh)
     with stage("D2H+flat"):
         return out.cpu().numpy()
 
@@ -305,7 +330,7 @@ def _rect_width(spans: np.ndarray) -> np.ndarray:
 
 def batch_decode_entries(buf: np.ndarray, starts: np.ndarray, rlens: np.ndarray,
                          codings, table: np.ndarray, ascii_mode: int = 1, *,
-                         device: torch.device):
+                         device=None, mesh=None):
     """Decode all five QV streams of N entries of several codings: the
     per-scheme route of the JAX package's ``batch_decode_entries``.
 
@@ -321,7 +346,10 @@ def batch_decode_entries(buf: np.ndarray, starts: np.ndarray, rlens: np.ndarray,
     1) for a plain channel, K5 (``decode_run``) and K6 (``expand_runs``) for
     an RLE one.  The delTag's packed bytes follow delQV: K6 places their
     letters beside delQV's literals, or, with delQV plain, they are unpacked
-    in place.  On the CPU the wrappers run the kernels' plain twins.
+    in place.  The chains of every launch are split over the shards of
+    ``mesh`` (one shard on ``device`` when no mesh is given), and their
+    symbols or tokens come back in shard order to the mesh's device, where
+    the rest runs.  On the CPU the wrappers run the kernels' plain twins.
 
     Returns (rows (5, N, max_len) u8 host rows, valid up to each entry's
     length, rlens (N,) i64); ``ascii_mode`` sets the delTag's letters (1
@@ -329,6 +357,9 @@ def batch_decode_entries(buf: np.ndarray, starts: np.ndarray, rlens: np.ndarray,
     from ..ops import decode_chains, expand
     from ..ops import twobit as tb
 
+    mesh = _mesh(device, mesh)
+    device = mesh.device
+    put = mesh_put(mesh)
     n = len(starts)
     rlens = np.asarray(rlens, np.int32)
     starts = np.asarray(starts, np.int64)
@@ -351,8 +382,9 @@ def batch_decode_entries(buf: np.ndarray, starts: np.ndarray, rlens: np.ndarray,
     f1, f2, subw, lmax = d2.scheme_tables2(schemes)
     sig = [255 if s.type == 2 else 256 for s in schemes]
     sw = [subw if ((f1[k] >> 20) & 1).any() else 0 for k in range(len(schemes))]
-    f1_d = torch.from_numpy(f1).to(device)
-    f2_d = torch.from_numpy(f2).to(device)
+    shard_devs = {mesh.devices[g] for g in mesh.local}
+    f1_d = {d: torch.from_numpy(f1).to(d) for d in shard_devs}
+    f2_d = {d: torch.from_numpy(f2).to(d) for d in shard_devs}
     # an entry's byte span (to the next entry's start) bounds each stream
     entry_ends = np.concatenate([starts[1:], [len(buf)]])
     out = torch.zeros((5, n, max_len), dtype=torch.uint8, device=device)
@@ -368,30 +400,34 @@ def batch_decode_entries(buf: np.ndarray, starts: np.ndarray, rlens: np.ndarray,
 
     def chains(chan, ci, sel, kw, ml, chan_starts):
         """Channel ``chan`` (0 del, 2 ins, 3 mrg, 4 sub) of the reads
-        ``sel``: K4b for a plain stream, K5 for an RLE one.  Returns (symbol
-        rows (n_g, ml) u8 or the tokens (runs, lits), the run character or
-        -1, the stream's u32 words (n_g,) i64 on the host)."""
+        ``sel``: K4b for a plain stream, K5 for an RLE one, over the shards
+        of ``mesh``.  Returns (symbol rows (n_g, ml) u8 or
+        the tokens (runs, lits), the run character or -1, the stream's u32
+        words (n_g,) i64 on the host)."""
         coding = codings[ci]
         rchar = {0: coding.del_char, 4: coding.sub_char}.get(chan, -1)
         s = sids[ci][chan]
-        with stage("rects"):
-            rect = torch.from_numpy(
-                d2.build_entry_rect(buf, chan_starts[sel], kw).view(np.int32)).to(device)
-            rl = torch.from_numpy(rlens[sel]).to(device)
-        with stage("step"):
+        r = sids[ci][chan + 1] if rchar >= 0 else s
+
+        def kern(rect, rl):
+            dev = rl.device
             if rchar < 0:
                 syms, bits, last = decode_chains.decode_plain(
-                    [rect], rl, f1_d[s:s + 1], f2_d, [sig[s]], [sw[s]],
+                    [rect], rl, f1_d[dev][s:s + 1], f2_d[dev], [sig[s]], [sw[s]],
                     max_len=ml, lmax=lmax)
-                got, bits, last = syms[0], bits[0], last[0]
-            else:
-                r = sids[ci][chan + 1]
-                runs, lits, bits, last = decode_chains.decode_run(
-                    rect, rl, f1_d[r], f1_d[s], f2_d, sig[s], max_tokens=ml,
-                    subw=max(sw[s], sw[r]), lmax=lmax)
-                got = (runs, lits)
-            words = d2.stream_word_counts(bits.cpu().numpy(), last.cpu().numpy())
-        return got, rchar, words
+                return syms[0], bits[0], last[0]
+            return decode_chains.decode_run(
+                rect, rl, f1_d[dev][r], f1_d[dev][s], f2_d[dev], sig[s], max_tokens=ml,
+                subw=max(sw[s], sw[r]), lmax=lmax)
+
+        with stage("rects"):
+            rect = d2.build_entry_rect(buf, chan_starts[sel], kw)
+        with stage("step"):
+            parts = [kern(x, rl) for x, rl in zip(put(rect), put(rlens[sel]))]
+            got = [torch.cat([p[i].to(device) for p in parts])[:len(sel)]
+                   for i in range(len(parts[0]))]
+            words = d2.stream_word_counts(got[-2].cpu().numpy(), got[-1].cpu().numpy())
+        return (got[0] if rchar < 0 else tuple(got[:2])), rchar, words
 
     in_read = (torch.arange(max_len, device=device)[None, :]
                < torch.from_numpy(rlens).to(device)[:, None])
@@ -431,8 +467,7 @@ def batch_decode_entries(buf: np.ndarray, starts: np.ndarray, rlens: np.ndarray,
         chan_starts = nxt
     with stage("step"):
         out = torch.where(in_read, out, 0)
-        if out.device.type == "cuda":
-            torch.cuda.synchronize(out.device)
+        _synchronize(mesh)
     with stage("D2H+flat"):
         rows = out.cpu().numpy()
     if ascii_mode == 2:

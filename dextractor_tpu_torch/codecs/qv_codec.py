@@ -40,6 +40,7 @@ from ..ops import bitstream as bs
 from ..ops import bitstream_torch as bt
 from ..ops import twobit as tb
 from ..ops.huffman import make_scheme
+from ..parallel.mesh import check_device
 from ..parallel.pipeline import null_run_luts, qv_encode_step
 from ..utils.dispatch import resolve_device
 from ..utils.errors import FormatError
@@ -647,10 +648,11 @@ def _walk_native(data: bytes, coding: dq.QVCoding, off: int, newv: bool):
 
 
 def _decode_entries_device(data: bytes, coding: dq.QVCoding, off: int,
-                           newv: bool, device: torch.device):
+                           newv: bool, device: torch.device, mesh=None):
     """Raw-container batch decode: the native lens walk resolves the entry
     chain (offsets only), then every entry's five streams decode as
-    independent chains on ``device`` (undexqv.c:101-208 output).  When a
+    independent chains on ``device``, or over the shards of ``mesh``
+    (undexqv.c:101-208 output).  When a
     read crosses SEG_DECODE symbols, a second lens walk records checkpoints
     and every read decodes as chains of at most SEG_DECODE symbols
     (qv_batch.fused_decode_entries_seg); otherwise, or with the environment
@@ -671,10 +673,10 @@ def _decode_entries_device(data: bytes, coding: dq.QVCoding, off: int,
     buf = np.frombuffer(data, np.uint8)
     if ck is not None:
         rows = fused_decode_entries_seg(buf, eoffs, elens.astype(np.int32), coffs,
-                                        ntoks, coding, ck, device)
+                                        ntoks, coding, ck, device, mesh)
     else:
         rows = fused_decode_entries(buf, eoffs, elens.astype(np.int32), coffs, ntoks,
-                                    coding, device)
+                                    coding, device, mesh)
     rlens = elens.astype(np.int64)
     with stage("D2H+flat"):
         streams = np.stack([rows_to_flat(rows[s], rlens) for s in range(5)])
@@ -769,7 +771,8 @@ def _walk_python(data: bytes, coding: dq.QVCoding, off: int, newv: bool):
             np.array(lengths, np.int64), streams)
 
 
-def decode_dexqv_to_quiva(data: bytes, upper: bool = False, device=None) -> bytes:
+def decode_dexqv_to_quiva(data: bytes, upper: bool = False, device=None,
+                          mesh=None) -> bytes:
     """Decode a .dexqv image to .quiva text (undexqv.c:101-208).
 
     device=False -> the native sequential walker on the host;
@@ -779,6 +782,9 @@ def decode_dexqv_to_quiva(data: bytes, upper: bool = False, device=None) -> byte
     "cpu" / "cuda" / a torch.device -> the batched decode there ("cpu" runs
                     the kernels' plain twins);
     device=None  -> utils/dispatch.device_default(), as the encoder.
+    With ``mesh`` (parallel/mesh.py) the batched decode is split over its
+    shards on the mesh's device: ``device`` None takes it, and a device
+    that disagrees with the mesh (``False`` among them) raises.
     ``upper`` writes the delTag in upper case (-U).  As in the JAX package,
     a mode whose native shim cannot build falls back: the device decode
     (which needs the native lens walk) to the native walker, and that to
@@ -794,10 +800,15 @@ def decode_dexqv_to_quiva(data: bytes, upper: bool = False, device=None) -> byte
         (key,) = struct.unpack_from("<H", mv, 0)
         newv = key in (dq.CONTAINER_KEY, 0xAA55)
         coding, off = dq.parse_qvcoding(mv, 2 if newv else 0)  # legacy: no key
-    dev = resolve_device(device)
+    if mesh is None:
+        dev = resolve_device(device)
+    elif device is False:
+        raise ValueError("device=False asks for the host walker, a mesh for the device")
+    else:
+        dev = check_device(mesh, None if device is None else resolve_device(device))
     res = None
     if dev is not None and not coding.flip:
-        res = _decode_entries_device(data, coding, off, newv, dev)
+        res = _decode_entries_device(data, coding, off, newv, dev, mesh)
     if res is None and not coding.flip:
         with stage("decode", len(data)):
             res = _walk_native(data, coding, off, newv)

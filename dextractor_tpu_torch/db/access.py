@@ -251,7 +251,7 @@ class DazzDB:
         qv.data = np.frombuffer(qdata, np.uint8)
         self._qv = qv
 
-    def load_all_qventries(self, ascii_mode: int = 1, device=None):
+    def load_all_qventries(self, ascii_mode: int = 1, device=None, mesh=None):
         """Batch-decode every read's five QV streams on the device: reads
         are independent chains (the DB stores per-read stream offsets, so
         no sequential walk is needed).
@@ -273,34 +273,41 @@ class DazzDB:
         (db/qvtrack.py) or, when absent, from a native headerless lens walk
         of the .qvs payload.  Without either, or with DXT_DB_FUSED=0, the
         per-scheme route (codecs/qv_batch.batch_decode_entries: K4b, K5,
-        K6) decodes every cell in one call.
+        K6) decodes every cell in one call.  With ``mesh``
+        (parallel/mesh.py), both routes split their reads over its shards
+        on the mesh's device; a ``device`` that disagrees raises.
 
         Returns (streams (5, total) u8, lengths (N,)).
         """
         from ..formats.ragged import rows_to_flat
         from ..codecs.qv_batch import batch_decode_entries
+        from ..parallel.mesh import check_device
         from ..utils.dispatch import resolve_device
 
         qv = self._qv
         if qv is None:
             raise DextractorError("QV's have not been opened (load_all_qventries)")
-        dev = resolve_device(device) or torch.device("cpu")
+        if mesh is not None:
+            dev = check_device(mesh, None if device is None else
+                               resolve_device(device) or torch.device("cpu"))
+        else:
+            dev = resolve_device(device) or torch.device("cpu")
         rlens = self.reads["rlen"].astype(np.int32)
         starts = self.reads["coff"].astype(np.int64)
         rlens64 = rlens.astype(np.int64)
         if os.environ.get("DXT_DB_FUSED", "1") == "1":
-            flats = self._load_qv_fused(starts, rlens, ascii_mode, dev)
+            flats = self._load_qv_fused(starts, rlens, ascii_mode, dev, mesh)
             if flats is not None:
                 return flats, rlens64
         out, rlens64 = batch_decode_entries(
             qv.data, starts, rlens, qv.codings, qv.table,
-            ascii_mode=ascii_mode, device=dev)
+            ascii_mode=ascii_mode, device=dev, mesh=mesh)
         with stage("D2H+flat"):
             streams = np.stack([rows_to_flat(out[s], rlens64)
                                 for s in range(5)])
         return streams, rlens64
 
-    def _load_qv_fused(self, starts, rlens, ascii_mode, device):
+    def _load_qv_fused(self, starts, rlens, ascii_mode, device, mesh=None):
         """Per-cell fused (and checkpoint-segmented) QV decode, or None
         when the index (track or native walk) is unavailable."""
         from ..formats.ragged import rows_to_flat
@@ -341,11 +348,11 @@ class DazzDB:
             if ck is not None:
                 rows = fused_decode_entries_seg(
                     qv.data, starts[sl], rl_c.astype(np.int32), coffs_c,
-                    ntoks_c, coding, ck, device)
+                    ntoks_c, coding, ck, device, mesh)
             else:
                 rows = fused_decode_entries(
                     qv.data, starts[sl], rl_c.astype(np.int32), coffs_c,
-                    ntoks_c, coding, device)
+                    ntoks_c, coding, device, mesh)
             with stage("D2H+flat"):
                 if ascii_mode == 2:
                     rows[1] = rows[1] - 32

@@ -10,8 +10,29 @@ plain PyTorch with all their table lookups in one K9 launch
 (ops.lut.lut_gather_groups) and the packing through K8
 (ops.lut.pack_words).  The delTag channel goes
 through K3 (ops.emit.pack_tags) on both routes.  On the CPU each wrapper
-takes its kernel's plain twin; ``_pack_tags`` here is K3's twin.  The
-sharded functions of the JAX module wait for the multi-GPU port.
+takes its kernel's plain twin; ``_pack_tags`` here is K3's twin.
+
+The sharded pipeline runs the same steps over a mesh (parallel/mesh.py):
+
+  phase A  ``sharded_scan_to_stats``: every shard histograms its block of
+           entries (``qv_scan_step``, ``qv_run_hist_step``); the tables are
+           summed over the mesh (``mesh.all_reduce``), so every process holds
+           the file-global statistics (one Huffman table per file,
+           QV.c:922-1023), and delChar is elected in file order;
+  phase B  ``sharded_qv_encode``: every shard encodes its block with the
+           shared tables through ``qv_encode_step``;
+  decode   ``sharded_decode_entry`` and ``sharded_decode_entry_seg`` run
+           ops/decode2's five-channel steps a shard, and
+           ``sharded_twobit_encode``/``_decode`` the 2-bit kernels.
+
+Each ``sharded_*`` function takes the mesh and returns a callable over
+whole host arrays (numpy or tensors), as the JAX package's ``shard_map``s
+do: the reads are split into the mesh's equal contiguous blocks
+(``mesh.split``, zero-length reads as padding), each local shard's block
+runs on its device in turn, and the outputs come back concatenated in
+shard order on ``mesh.device``, cut to the real reads of this process's
+shards (all reads for a mesh of one process).  The only collectives are
+the scan's.
 """
 
 from __future__ import annotations
@@ -24,6 +45,8 @@ from ..ops import bitstream_torch as bt
 from ..ops import emit
 from ..ops import lut
 from ..utils import dispatch
+from .mesh import all_reduce
+from .multihost import mesh_put
 
 PLANE = (0, 2, 3, 4)   # channel c (del/ins/mrg/sub LUT order) -> its stream plane
 
@@ -170,3 +193,335 @@ def _pack_tags(tag_rows, del_rows, lengths, del_char, number_lut):
     if l:
         packed.scatter_add_(1, rank.clamp(min=0) >> 2, contrib)
     return packed.to(torch.uint8), keep.sum(1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the scan steps of one shard (phase A)
+# ---------------------------------------------------------------------------
+
+I32_INF = 0x7FFFFFFF
+
+
+def _histogram256(data, weights):
+    """256-bin histogram of the u8 values of ``data`` where ``weights`` is
+    true, in exact int64 counts.  ``torch.bincount``: the JAX package's
+    one-hot MXU product (``pipeline.py:200``) is XLA, not a Pallas kernel."""
+    return torch.bincount(data.reshape(-1)[weights.reshape(-1)].long(), minlength=256)
+
+
+def _valid(rows, lengths):
+    col = torch.arange(rows.shape[1], device=rows.device)
+    return col[None, :] < lengths.long()[:, None]
+
+
+def qv_scan_step(streams, lengths):
+    """Statistics of one shard: the histograms of del, ins, mrg and sub
+    (4, 256) i64, the total symbols, the first 'n'/'N' delTag's flat
+    position in the shard (int32 range, I32_INF for none), its entry
+    (I32_INF for none) and the delQV under it (the first minimum; garbage
+    without an 'n').  The run histograms need delChar/subChar, which exist
+    only after the global reduction: ``qv_run_hist_step``."""
+    _, n, l = streams.shape
+    dev = streams.device
+    valid = _valid(streams[0], lengths)
+    hists = torch.stack([_histogram256(streams[p], valid) for p in PLANE])
+    tot = lengths.long().sum()
+    tag = streams[1]
+    isn = valid & ((tag == ord("n")) | (tag == ord("N")))
+    starts = torch.cumsum(lengths.long(), 0) - lengths.long()
+    col = torch.arange(l, device=dev)
+    flatpos = torch.where(isn, col[None, :] + starts[:, None], I32_INF).to(torch.int32)
+    if flatpos.numel() == 0:
+        inf = torch.tensor(I32_INF, device=dev)
+        return hists, tot, inf, inf, torch.tensor(0, device=dev)
+    flat = flatpos.reshape(-1)
+    first_n = flat.min().long()
+    first_entry = torch.where(isn.any(1), torch.arange(n, device=dev), I32_INF).min()
+    dcand = streams[0].reshape(-1)[flat.argmin()].long()
+    return hists, tot, first_n, first_entry, dcand
+
+
+def qv_run_hist_step(data, lengths, rchar):
+    """Histogram_Runs over a shard (QV.c:702-724): before every literal the
+    length of the run of ``rchar`` since the previous literal, and the
+    trailing run of each row when it is not empty, each clamped at 255.
+    The JAX package's ``associative_scan(max)`` is ``torch.cummax``."""
+    n, l = data.shape
+    if l == 0:
+        return torch.zeros(256, dtype=torch.long, device=data.device)
+    col = torch.arange(l, device=data.device).expand(n, l)
+    is_lit = _valid(data, lengths) & (data.long() != int(rchar))
+    run_max = torch.cummax(torch.where(is_lit, col, -1), 1).values
+    prev_lit = torch.cat([torch.full((n, 1), -1, device=data.device), run_max[:, :-1]], 1)
+    hist = _histogram256((col - prev_lit - 1).clamp(max=255), is_lit)
+    trail = (lengths.long() - run_max[:, -1] - 1).clamp(min=0)
+    return hist + _histogram256(trail.clamp(max=255), trail > 0)
+
+
+def qv_subchar_prefix_step(sub_rows, lengths, upto_entry: int):
+    """The substitution histogram of entries [0, upto_entry] of a shard:
+    the prefix the subChar mode is chosen from (QV.c:1006-1017)."""
+    w = _valid(sub_rows, lengths) & (torch.arange(sub_rows.shape[0], device=sub_rows.device)
+                                    <= int(upto_entry))[:, None]
+    return _histogram256(sub_rows, w)
+
+
+# ---------------------------------------------------------------------------
+# the sharded pipeline
+# ---------------------------------------------------------------------------
+
+def _on_devices(mesh, x, dtype):
+    """One copy of the replicated array ``x`` on each device of this
+    process's shards: {device: tensor}."""
+    return {d: _as(x, dtype, d) for d in {mesh.devices[g] for g in mesh.local}}
+
+
+def _gather(mesh, parts, n_real, axis: int = 0):
+    """Per-shard outputs -> one tensor on ``mesh.device``, concatenated in
+    shard order along ``axis`` and cut to the local shards' real rows."""
+    out = torch.cat([p.to(mesh.device) for p in parts], axis)
+    return out.narrow(axis, 0, n_real)
+
+
+def _local_reads(mesh, n: int) -> int:
+    """The real reads of this process's shards."""
+    _, blocks = mesh.split(n)
+    return sum(end - beg for _, beg, end in blocks)
+
+
+def sharded_qv_scan(mesh):
+    """Phase A's scan: (streams (5, N, L), lengths (N,)) -> (hists (4, 256),
+    tot, winner, gentry, dchar), the same on every process.  Shards are
+    contiguous read blocks in file order, so delChar is elected as the
+    sequential scan finds it: ``winner`` is the lowest shard holding an 'n'
+    tag (min over the mesh), then ``dchar`` and ``gentry`` (its local entry)
+    come from that shard alone (max over the mesh of -1 elsewhere)."""
+    put = mesh_put(mesh)
+
+    def scan(streams, lengths):
+        _, blocks = mesh.split(lengths.shape[0])
+        res = [qv_scan_step(s, l) for s, l in zip(put(streams, 1, torch.uint8),
+                                                  put(lengths, 0, torch.int32))]
+        dev = mesh.device
+        hists = all_reduce(mesh, [torch.cat([h.reshape(-1), t.reshape(1)])
+                                  for h, t, *_ in res], "sum")
+        has_n = [r[2].item() < I32_INF for r in res]
+        winner = all_reduce(mesh, [torch.tensor(g if h else I32_INF, device=dev)
+                                   for (g, _, _), h in zip(blocks, has_n)], "min")
+        w = winner.item()
+        mine = [g == w and h for (g, _, _), h in zip(blocks, has_n)]
+        cand = all_reduce(mesh, [torch.stack([r[4], r[3]]) if m
+                                 else torch.tensor([-1, -1], device=r[4].device)
+                                 for r, m in zip(res, mine)], "max")
+        return hists[:1024].reshape(4, 256), hists[1024], winner, cand[1], cand[0]
+
+    return scan
+
+
+def sharded_run_hist(mesh):
+    """Histogram_Runs over the mesh: (data (N, L), lengths (N,), rchar) ->
+    the (256,) sum over the shards of ``qv_run_hist_step``."""
+    put = mesh_put(mesh)
+
+    def run_hist(data, lengths, rchar):
+        return all_reduce(mesh, [qv_run_hist_step(d, l, int(rchar)) for d, l in zip(
+            put(data, 0, torch.uint8), put(lengths, 0, torch.int32))], "sum")
+
+    return run_hist
+
+
+def sharded_hist_masked(mesh):
+    """The length-masked histogram over the mesh (the subChar prefix):
+    (data (N, L), lengths (N,)) -> (256,)."""
+    put = mesh_put(mesh)
+
+    def hist(data, lengths):
+        return all_reduce(mesh, [_histogram256(d, _valid(d, l)) for d, l in zip(
+            put(data, 0, torch.uint8), put(lengths, 0, torch.int32))], "sum")
+
+    return hist
+
+
+def sharded_scan_to_stats(mesh, streams, lengths):
+    """The whole phase-A scan over the mesh, with the sequential
+    QVcoding_Scan's semantics (QV.c:922-1023): global histograms, delChar
+    elected in file order, subChar the mode of the prefix up to the entry
+    where the total passes 100,000 symbols, the run histograms from those
+    entries on.  streams (5, N, L) u8 and lengths (N,), numpy or tensors,
+    whole on every process.  Returns the port's codecs.qv_codec.QVStats."""
+    from ..codecs.qv_codec import QVStats
+
+    lengths_np = (lengths.cpu().numpy() if isinstance(lengths, torch.Tensor)
+                  else np.asarray(lengths)).astype(np.int64)
+    n = len(lengths_np)
+    per, _ = mesh.split(n)
+    hists, tot, winner, gentry, dchar = sharded_qv_scan(mesh)(streams, lengths_np)
+    hists = hists.cpu().numpy().astype(np.int64)
+    del_char = int(dchar)
+    entry_idx = np.arange(n)
+
+    del_run = np.ones(256, np.int64)
+    if del_char >= 0:
+        r0 = int(winner) * per + int(gentry)
+        del_run += sharded_run_hist(mesh)(
+            streams[0], np.where(entry_idx >= r0, lengths_np, 0), del_char).cpu().numpy()
+
+    sub_run = np.ones(256, np.int64)
+    sub_char = -1
+    total = int(tot)
+    if total >= 100000:
+        r1 = int(np.searchsorted(np.cumsum(lengths_np), 100000, "left"))
+        part = sharded_hist_masked(mesh)(streams[4], np.where(entry_idx <= r1, lengths_np, 0))
+        sub_char = int(part.cpu().numpy().argmax())
+        sub_run += sharded_run_hist(mesh)(
+            streams[4], np.where(entry_idx >= r1, lengths_np, 0), sub_char).cpu().numpy()
+
+    return QVStats(hists[0], hists[1], hists[2], hists[3], del_run, sub_run,
+                   del_char, sub_char, total)
+
+
+def sharded_qv_encode(mesh, run_on=(True, True)):
+    """Phase B over the mesh: (streams (5, N, L), lengths (N,), sym_luts,
+    run_luts, rchars, number_lut) -> ``qv_encode_step``'s seven outputs,
+    concatenated over reads in shard order.  Every shard's block has the
+    rectangle's global width L, so every shard takes the same route (K1/K2
+    where ``emit.fused_ok(L)``, K9/K8 otherwise) and its words the same
+    width."""
+    put = mesh_put(mesh)
+
+    def encode(streams, lengths, sym_luts, run_luts, rchars, number_lut):
+        n = lengths.shape[0]
+        tables = [_on_devices(mesh, x, t) for x, t in (
+            (sym_luts, torch.int32), (run_luts, torch.int32), (rchars, torch.int32),
+            (number_lut, torch.uint8))]
+        parts = [qv_encode_step(s, l, *(t[s.device] for t in tables), run_on=run_on)
+                 for s, l in zip(put(streams, 1, torch.uint8), put(lengths, 0, torch.int32))]
+        m = _local_reads(mesh, n)
+        return tuple(_gather(mesh, [p[i] for p in parts], m, 1 if i < 5 else 0)
+                     for i in range(7))
+
+    return encode
+
+
+def sharded_decode_entry(mesh, *, max_len: int, max_tokens: int, del_mode: str,
+                         sub_mode: str, subw: int, lmax: int, chan_l2: tuple | None = None):
+    """The fused five-channel entry decode over the mesh: (rect_del,
+    tag_bytes, rect_ins, rect_mrg, rect_sub, rlens, sids, f1, f2, types,
+    del_char, sub_char) as ``ops/decode2.decode_entry_batch2`` takes them,
+    the rectangles and rlens split into the mesh's blocks of reads, the
+    tables on every shard's device.  Returns (5, N, max_len) u8 rows."""
+    from ..ops import decode2 as d2
+    put = mesh_put(mesh)
+
+    def decode(rect_del, tag_bytes, rect_ins, rect_mrg, rect_sub, rlens, sids, f1, f2,
+               types, del_char, sub_char):
+        f1d, f2d = _on_devices(mesh, f1, torch.int32), _on_devices(mesh, f2, torch.int32)
+        rows = [put(x) for x in (rect_del, tag_bytes, rect_ins, rect_mrg, rect_sub)]
+        parts = [d2.decode_entry_batch2(
+            *r, rl, sids, f1d[rl.device], f2d[rl.device], types, del_char, sub_char,
+            max_len=max_len, max_tokens=max_tokens, del_mode=del_mode, sub_mode=sub_mode,
+            subw=subw, lmax=lmax, chan_l2=chan_l2)
+            for *r, rl in zip(*rows, put(rlens, 0, torch.int32))]
+        return _gather(mesh, parts, _local_reads(mesh, len(rlens)), 1)
+
+    return decode
+
+
+def sharded_decode_entry_seg(mesh, *, seg: int, max_tokens: int, del_mode: str,
+                             sub_mode: str, subw: int, lmax: int, chan_l2: tuple | None = None):
+    """The checkpoint-segmented entry decode over the mesh: (rect_del,
+    tag_in, rect_ins, rect_mrg, rect_sub, seg_rlens, pos0, carr, sids, f1,
+    f2, types, del_char, sub_char) as ``ops/decode2.decode_entry_batch_seg``
+    takes them, in the flat layout (codecs/qv_batch.build_seg_launch_flat;
+    the JAX package's function takes its bucketed layout, which is not
+    ported).  Every segment row is a chain of its own that starts at its
+    checkpoint, so the rows split into the mesh's blocks as reads do.
+    Returns (5, NS, seg) u8 segment rows."""
+    from ..ops import decode2 as d2
+    put = mesh_put(mesh)
+
+    def decode(rect_del, tag_in, rect_ins, rect_mrg, rect_sub, seg_rlens, pos0, carr,
+               sids, f1, f2, types, del_char, sub_char):
+        f1d, f2d = _on_devices(mesh, f1, torch.int32), _on_devices(mesh, f2, torch.int32)
+        rows = [put(x) for x in (rect_del, tag_in, rect_ins, rect_mrg, rect_sub)]
+        parts = [d2.decode_entry_batch_seg(
+            *r, rl, p, c, sids, f1d[rl.device], f2d[rl.device], types, del_char, sub_char,
+            seg=seg, max_tokens=max_tokens, del_mode=del_mode, sub_mode=sub_mode,
+            subw=subw, lmax=lmax, chan_l2=chan_l2)
+            for *r, rl, p, c in zip(*rows, put(seg_rlens, 0, torch.int32),
+                                    put(pos0, 1, torch.int32), put(carr, 1, torch.int32, -1))]
+        return _gather(mesh, parts, _local_reads(mesh, len(seg_rlens)), 1)
+
+    return decode
+
+
+_ALPHABET_LUTS = {"base": "NUMBER_BASE_LUT", "arrow": "NUMBER_ARROW_LUT"}
+
+
+def _pack_rows(rows, lengths, lut):
+    """(N, L) ascii rows -> (N, ceil(L/4)) 2-bit rows through one K7
+    launch: rectangle row i is read i of L bases at offset i*L, its payload
+    at i*ceil(L/4).  The bases at or past a row's length become a byte
+    whose code is 0; with a table that has none, the rows are translated
+    first and K7 packs them through the identity table."""
+    n, l = rows.shape
+    dev = rows.device
+    w = (l + 3) // 4
+    inlen = _valid(rows, lengths)
+    zero = np.flatnonzero((np.asarray(lut) & 3) == 0)
+    if len(zero):
+        flat = torch.where(inlen, rows, int(zero[0]))
+        table = _as(lut, torch.uint8, dev)
+    else:
+        flat = torch.where(inlen, _as(lut, torch.uint8, dev)[rows.long()], 0)
+        table = torch.arange(256, device=dev).to(torch.uint8) & 3
+    step = torch.arange(n + 1, device=dev, dtype=torch.int64)
+    from ..ops.pack2bit import pack2bit
+
+    return pack2bit(flat.reshape(-1).contiguous(), step * l, step * w, table,
+                    n * w).reshape(n, w)
+
+
+def sharded_twobit_encode(mesh, alphabet: str | None = "base"):
+    """The 2-bit pack over the mesh (the .dexta/.dexar compute path at
+    scale): (ascii_rows (N, L), lengths (N,), number_lut (256,)) -> packed
+    rows (N, ceil(L/4)) u8, first base in bits 7-6, bases at or past a
+    row's length 0: the JAX package's ``pack_translate`` for the alphabets
+    "base" and "arrow" (whose tables replace ``number_lut``), its
+    ``pack_2bit(number_lut[rows])`` for None.  One K7 launch a shard, no
+    collective (Compress_Read is per read, DB.c:319-338)."""
+    from ..ops import twobit as tb
+    if alphabet is not None and alphabet not in _ALPHABET_LUTS:
+        raise ValueError(f"unknown alphabet {alphabet!r}")
+    put = mesh_put(mesh)
+
+    def encode(ascii_rows, lengths, number_lut):
+        lut = np.asarray(getattr(tb, _ALPHABET_LUTS[alphabet]) if alphabet else
+                         (number_lut.cpu() if isinstance(number_lut, torch.Tensor)
+                          else number_lut), np.uint8)
+        parts = [_pack_rows(r, l, lut) for r, l in zip(
+            put(ascii_rows, 0, torch.uint8), put(lengths, 0, torch.int64))]
+        return _gather(mesh, parts, _local_reads(mesh, len(lengths)))
+
+    return encode
+
+
+def sharded_twobit_decode(mesh):
+    """The 2-bit unpack and letter map over the mesh: (packed_rows (N, C),
+    letter_lut (4,)) -> (N, 4C) u8, every code of every byte as its letter
+    (the JAX package's ``unpack_translate``).  One unpack launch a shard:
+    row i is a read of 4C letters whose payload is at i*C."""
+    from ..ops.pack2bit import unpack2bit
+    put = mesh_put(mesh)
+
+    def decode(packed_rows, letter_lut):
+        luts = _on_devices(mesh, letter_lut, torch.uint8)
+        parts = []
+        for p in put(packed_rows, 0, torch.uint8):
+            n, c = p.shape
+            step = torch.arange(n + 1, device=p.device, dtype=torch.int64)
+            parts.append(unpack2bit(p.reshape(-1), step * c, step * 4 * c, luts[p.device],
+                                    n * 4 * c).reshape(n, 4 * c))
+        return _gather(mesh, parts, _local_reads(mesh, len(packed_rows)))
+
+    return decode

@@ -86,13 +86,15 @@ def test_cli_dexqv(corpora, tmp_path):
 
 def test_port_imports_no_jax(tmp_path):
     """In a fresh interpreter: import every module of the port (ops.tag,
-    ops.bitstream, tools.decode_ablate, ingest, db, cli.dextract and
-    cli.dex2DB among them) and chip_smoke, load the HDF5 shim where libhdf5
+    ops.bitstream, tools.decode_ablate, tools.multichip, parallel.mesh,
+    parallel.multihost, ingest, db, cli.dextract and cli.dex2DB among them)
+    and chip_smoke, load the HDF5 shim where libhdf5
     is, encode and decode (.dexqv and .dexta) on the CPU, run the CLI (dexqv,
     dexta, undexta), and rehearse
     every phase of chip_smoke on the CPU at the smallest sizes that reach
     each branch (the wrappers run their twins there; tests/test_torch_decode_*
-    cover the decode at larger sizes).  Neither jax nor the JAX package may be imported."""
+    cover the decode at larger sizes), phase 14 without its two processes
+    (tests/test_torch_parallel.py spawns them).  Neither jax nor the JAX package may be imported."""
     path = str(tmp_path / "a.quiva")
     fpath, dpath = str(tmp_path / "g.fasta"), str(tmp_path / "g.dexta")
     code = f"""
@@ -103,7 +105,8 @@ for m in pkgutil.walk_packages(dextractor_tpu_torch.__path__, "dextractor_tpu_to
     if not m.name.endswith("__main__"):
         importlib.import_module(m.name)
 for m in ("ops.tag", "ops.bitstream", "tools.decode_ablate", "ingest.sam", "ingest.bax",
-          "db.access", "db.build", "db.qvtrack", "cli.dextract", "cli.dex2DB"):
+          "db.access", "db.build", "db.qvtrack", "cli.dextract", "cli.dex2DB",
+          "tools.multichip", "parallel.mesh", "parallel.multihost"):
     assert "dextractor_tpu_torch." + m in sys.modules
 from dextractor_tpu_torch.native import hdf5_shim
 try:
@@ -156,7 +159,15 @@ chip_smoke.phase_twobit_slice("cpu", tcases)
 from dextractor_tpu_torch.testing import make_bam
 bams = [("uniform", make_bam(np.random.default_rng(0), n_reads=5, min_len=50, max_len=200)[0]),
         ("long_reads", make_bam(np.random.default_rng(2), lengths=[300, 120])[0])]
-chip_smoke.phase_db("cpu", bams, every=2)
+import tempfile
+# phase 14: a read over 2,048 symbols reaches the segmented route
+mixed = make_quiva(np.random.default_rng(4), lengths=[2100, 40, 0, 300])
+with tempfile.TemporaryDirectory() as d:
+    chip_smoke.phase_db("cpu", bams, every=2, workdir=d)
+    chip_smoke.phase_multichip("cpu", [("uniform", make_quiva(np.random.default_rng(0))),
+                                       ("long_reads", longr)],
+                               [("mixed", mixed, encode_quiva_to_dexqv(mixed, device=False))],
+                               fa, d + "/both", shards=(2,), backend="gloo", spawn=False)
 print(sorted(m for m in sys.modules if m in ("jax", "dextractor_tpu")
              or m.startswith(("jax.", "dextractor_tpu."))))
 """
@@ -174,6 +185,10 @@ print(sorted(m for m in sys.modules if m in ("jax", "dextractor_tpu")
     assert "ABLATE: " in r.stdout and "[ablate] launches" in r.stdout
     for route in ("fused", "walk", "scheme"):
         assert f"[db] both ({route} route, ascii mode 1)" in r.stdout
+    for route in ("segmented", "per_read"):
+        assert f"decode_dexqv_to_quiva mixed ({route} route): equal on [2]" in r.stdout
+    assert "one-rank gloo group, 2 shards" in r.stdout
+    assert "[multichip] phase 14: " in r.stdout
 
 
 def test_chip_smoke_reads_ptxas():
