@@ -2,11 +2,12 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: the .dexqv encode and
 decode paths, the 2-bit codecs (.dexta, .dexar), the decode step's
 phase split (tools/decode_ablate.py), dextract, dex2DB and the Dazzler
-DB's QV load, and the sharded pipeline.
+DB's QV load, the sharded pipeline, the v1 stream decoders and the 2-bit
+device ops, and the encode step's tools (step_verify, encode_split).
 
 Run from the repository root on a machine with an sm_90 card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--out FILE]
 
 Phases, each printing one line (or a few) before the final JSON lines:
 
@@ -127,6 +128,19 @@ Phases, each printing one line (or a few) before the final JSON lines:
    must be the native encoder's file; the phase's wall seconds, and each
    check's end after the phase's start.  Several shards on one card
    measure the cost of sharding, not scaling.
+15. v1 decoders and the surface: ops/decode_torch.decode_plain_batch on
+   insQV and decode_run_batch on delQV of the uniform and the long-read
+   .dexqv (each stream's start from the index walk), K4b and K5 launched
+   and no twin, each against the per-scheme route's rows
+   (batch_decode_entries) and the walk's stream lengths, the uniform one
+   also against the twins on the card, and sharded_decode_plain/_run on 1,
+   2 and 4 shards against one device; the 2-bit device ops of
+   ops/twobit.py (pack_translate, translate, pack_2bit, unpack_translate,
+   unpack_2bit) on the uniform .fasta rows, K7, K9 and the unpack launched
+   and no twin, each against its twin; tools/step_verify (its STEPV line:
+   the uniform encode step's container equals the native encoder's) and
+   tools/encode_split (its SPLIT line: each sub-call of the encode step
+   timed alone, and the glue), in process.
 
 Each kernel is timed, at the main path's shapes, as device time per call
 from a torch.profiler trace (``ms``, with L2 flushed before each launch, as
@@ -142,7 +156,11 @@ call of more than one fails).  It prints the
 kernels as one JSON line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises, so the exit code is non-zero and no result is printed.
-It exits 1 at once when torch.cuda.is_available() is False.
+It exits 1 at once when torch.cuda.is_available() is False.  With
+``--out FILE`` it also writes a JSON record of the run: the UTC time, the
+checkout's ``git rev-parse HEAD`` (null outside a checkout), the card's
+name and power limit, each phase's name, ok and wall seconds, and the
+kernels line (``RunRecord``).
 """
 
 from __future__ import annotations
@@ -274,7 +292,8 @@ def phase_environment():
                          text=True, check=True).stdout
     m = re.search(r"release ([0-9.]+)", ver)
     cap = torch.cuda.get_device_capability(0)
-    log(smi.splitlines()[0])
+    card = smi.splitlines()[0]
+    log(card)
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"nvcc {m.group(1) if m else '?'} capability {cap} "
         f"devices {torch.cuda.device_count()}")
@@ -287,6 +306,7 @@ def phase_environment():
     del a, b
     log(f"[env] copy bandwidth {COPY_BW['bytes_per_s'] / 1e12} TB/s "
         f"(1 GiB copy_, read + write, {ms} ms)")
+    return card
 
 
 def _kernel_name(mangled: str) -> str:
@@ -1979,60 +1999,378 @@ def phase_multichip(device, quivas, encoded, fasta: bytes, db: str, shards=SHARD
     return decode_launches
 
 
-def main() -> int:
+SURFACE_KERNELS = ("pack2bit", "unpack2bit", "lut_gather")
+
+
+@contextlib.contextmanager
+def decode_twins():
+    """Within the block, the wrappers of K4 and K5 are their twins
+    (ops/decode2.plain_chains, run_chain), which run on the tensors' device,
+    the card included."""
+    from dextractor_tpu_torch.ops import decode2 as d2
+    from dextractor_tpu_torch.ops import decode_chains
+
+    saved = decode_chains.decode_plain, decode_chains.decode_run
+    decode_chains.decode_plain, decode_chains.decode_run = d2.plain_chains, d2.run_chain
+    try:
+        yield
+    finally:
+        decode_chains.decode_plain, decode_chains.decode_run = saved
+
+
+def v1_batch(dexqv: bytes):
+    """The v1 decoders' arguments for the insQV and delQV streams of every
+    entry of a .dexqv image, each stream's start from the port's index walk
+    (codecs/qv_codec._index_native): {"buf", "ins_starts", "del_starts",
+    "rlens", "lookups", "lens_tbl", "types", "ids" {channel: scheme id},
+    "coding", "coffs", "ntoks"}.  The tables hold the coding's del, drun
+    and ins schemes (drun only when delQV is run-coded)."""
+    import numpy as np
+    from dextractor_tpu_torch.codecs.qv_codec import _index_native
+    from dextractor_tpu_torch.formats import dexqv as dq
+
+    coding, off = dq.parse_qvcoding(memoryview(dexqv), 2)
+    _, _, _, _, eoffs, elens, coffs, ntoks = _index_native(dexqv, coding, off, True)
+    schemes = {"del": coding.del_scheme, "ins": coding.ins_scheme}
+    if coding.del_char >= 0:
+        schemes["drun"] = coding.drun_scheme
+    for s in schemes.values():
+        s.with_lookup()
+    eoffs = np.asarray(eoffs, np.int64)
+    return {"buf": np.frombuffer(dexqv, np.uint8), "del_starts": eoffs,
+            "ins_starts": eoffs + np.asarray(coffs, np.int64)[:, 1],
+            "rlens": np.asarray(elens, np.int32),
+            "lookups": np.stack([s.lookup for s in schemes.values()]).astype(np.int32),
+            "lens_tbl": np.stack([s.codelens for s in schemes.values()]).astype(np.int32),
+            "types": np.array([s.type for s in schemes.values()], np.int32),
+            "ids": {k: i for i, k in enumerate(schemes)}, "coding": coding,
+            "coffs": np.asarray(coffs, np.int64), "ntoks": np.asarray(ntoks)}
+
+
+def v1_decodes(b, device, mesh=None):
+    """insQV through decode_plain_batch and delQV through decode_run_batch
+    (decode_plain_batch when delQV is plain) of a ``v1_batch``, on
+    ``device``, or over ``mesh`` through sharded_decode_plain/_run:
+    {"ins": outputs, "del": outputs}."""
+    import numpy as np
+    from dextractor_tpu_torch.formats.ragged import bucket_len
+    from dextractor_tpu_torch.ops.decode_torch import decode_plain_batch, decode_run_batch
+    from dextractor_tpu_torch.parallel import pipeline as pl
+
+    n = len(b["rlens"])
+    max_len = bucket_len(int(b["rlens"].max(initial=0)), 512)
+    tables = (b["lookups"], b["lens_tbl"], b["types"])
+
+    def plain(starts, sid):
+        ids = np.full(n, sid, np.int32)
+        if mesh is not None:
+            return pl.sharded_decode_plain(mesh, max_len=max_len)(
+                b["buf"], starts, b["rlens"], ids, *tables)
+        return decode_plain_batch(b["buf"], starts, b["rlens"], ids, *tables,
+                                  max_len=max_len, device=device)
+
+    out = {"ins": plain(b["ins_starts"], b["ids"]["ins"])}
+    if "drun" not in b["ids"]:
+        out["del"] = plain(b["del_starts"], b["ids"]["del"])
+        return out
+    max_tokens = bucket_len(int(b["ntoks"][:, 0].max(initial=0)), 16)
+    ids = (np.full(n, b["ids"]["del"], np.int32), np.full(n, b["ids"]["drun"], np.int32))
+    if mesh is not None:
+        out["del"] = pl.sharded_decode_run(mesh, max_tokens=max_tokens)(
+            b["buf"], b["del_starts"], b["rlens"], *ids, *tables)
+    else:
+        out["del"] = decode_run_batch(b["buf"], b["del_starts"], b["rlens"], *ids, *tables,
+                                      max_tokens=max_tokens, device=device)
+    return out
+
+
+def _same_outputs(a, b):
     import torch
 
+    return all(len(a[k]) == len(b[k]) and all(torch.equal(x, y) for x, y in zip(a[k], b[k]))
+               for k in a)
+
+
+def v1_against_per_scheme(b, outs, device):
+    """The v1 decodes of ``v1_batch`` ``b`` against the per-scheme route
+    (codecs/qv_batch.batch_decode_entries) on the same entries: insQV's
+    symbols and delQV's (its tokens expanded on the host by expand_runs_np)
+    equal that route's rows within each read, and each stream's word count
+    from total_bits and last_gran is its length in the index walk's channel
+    offsets."""
+    import numpy as np
+    from dextractor_tpu_torch.codecs.qv_batch import batch_decode_entries
+    from dextractor_tpu_torch.ops.decode2 import stream_word_counts
+    from dextractor_tpu_torch.ops.decode_torch import expand_runs_np
+
+    rl = b["rlens"]
+    rows, _ = batch_decode_entries(b["buf"], b["del_starts"], rl, [b["coding"]],
+                                   np.zeros(len(rl), np.int64), device=device)
+    inr = np.arange(rows.shape[2])[None, :] < rl[:, None]
+    ins, dl = ([x.cpu().numpy() for x in outs[k]] for k in ("ins", "del"))
+    del_rows = (expand_runs_np(dl[0], dl[1], rl, b["coding"].del_char)
+                if "drun" in b["ids"] else dl[0])
+    w = min(rows.shape[2], ins[0].shape[1], del_rows.shape[1])
+    inr = inr[:, :w]
+    for name, got, chan in (("insQV", ins[0], 2), ("delQV", del_rows, 0)):
+        if not np.array_equal(np.where(inr, got[:, :w], 0), np.where(inr, rows[chan, :, :w], 0)):
+            raise AssertionError(f"v1 {name} differs from the per-scheme route's rows")
+    spans = {"insQV": (ins, b["coffs"][:, 2] - b["coffs"][:, 1]),
+             "delQV": (dl, b["coffs"][:, 0])}
+    for name, (o, nbytes) in spans.items():
+        if not np.array_equal(4 * stream_word_counts(o[-2], o[-1]), nbytes):
+            raise AssertionError(f"v1 {name}: word counts differ from the index walk")
+
+
+def phase_v1_surface(device, encoded, fasta: bytes, uniform: bytes, long: bytes,
+                     shards=SHARDS):
+    """The v1 decoders and the JAX package's public surface on ``device``.
+
+    (a) decode_plain_batch on insQV and decode_run_batch on delQV of each
+    .dexqv of ``encoded`` [(name, image)], the streams' starts from the
+    index walk: K4b and K5 launched and no twin; each against the
+    per-scheme route (``v1_against_per_scheme``), the first also against
+    the twins on the same device (``decode_twins``); sharded_decode_plain/
+    _run on meshes of ``shards`` shards equal to the one-device result.
+    (b) The 2-bit device ops on the .fasta rows of ``fasta``:
+    pack_translate, translate, pack_2bit, unpack_translate and unpack_2bit,
+    K7, K9 and the unpack launched and no twin, each equal to its twin and
+    the round trip to the rows' letters.  (c) tools/step_verify on
+    ``uniform`` (its STEPV line, step_bytes_ok true) and tools/encode_split
+    on ``uniform`` and ``long`` (its SPLIT line; on the CPU both are
+    rehearsals of their control flow).  Returns {(a) or (b): launch counts}."""
+    import numpy as np
+    import torch
+    from dextractor_tpu_torch.formats.fasta import parse_seq_file
+    from dextractor_tpu_torch.formats.ragged import pad_rows
+    from dextractor_tpu_torch.ops import twobit as tb
+    from dextractor_tpu_torch.parallel.mesh import make_mesh
+    from dextractor_tpu_torch.tools import encode_split, step_verify
+    from dextractor_tpu_torch.utils import dispatch
+
+    card = on_card(device)
+    dev = torch.device("cuda", 0) if card else torch.device("cpu")
+    t_phase = time.perf_counter()
+    counts = {}
+
+    def vlog(msg):
+        log(f"[v1 +{time.perf_counter() - t_phase:6.1f}s] {msg}")
+
+    def sync():
+        if card:
+            torch.cuda.synchronize(dev)
+
+    def main_path(label, kernels, fn):
+        """fn() with the counts set to 0 before and read after; on the card
+        each of ``kernels`` must launch and no twin run."""
+        sync()
+        dispatch.reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        seconds = time.perf_counter() - t0
+        launches, twins = _counts()
+        if card:
+            _path_launches(label, launches, twins, kernels)
+        counts[label] = _nonzero(launches) if card else _nonzero(twins)
+        return out, seconds
+
+    # (a) the v1 decoders
+    for i, (name, dexqv) in enumerate(encoded):
+        b = v1_batch(dexqv)
+        kernels = ("decode_plain",) + (("decode_run",) if "drun" in b["ids"] else ())
+        outs, secs = main_path(f"v1 decoders {name}", kernels, lambda: v1_decodes(b, dev))
+        v1_against_per_scheme(b, outs, dev)
+        checks = "the per-scheme route's rows and the index walk's stream lengths"
+        if i == 0:
+            with decode_twins():
+                twins = v1_decodes(b, dev)
+            if not _same_outputs(outs, twins):
+                raise AssertionError(f"v1 decoders {name}: the kernels differ from the twins")
+            checks += ", the twins on the same device"
+        for k in shards:
+            if not _same_outputs(v1_decodes(b, dev, make_mesh(k, dev)), outs):
+                raise AssertionError(f"sharded v1 decoders {name}: {k} shards differ "
+                                     "from one device")
+        vlog(f"v1 decoders {name} ({len(b['rlens'])} reads, delQV "
+             f"{'RLE' if 'drun' in b['ids'] else 'plain'}): {secs:.4f} s host clock for "
+             f"both; launches {counts[f'v1 decoders {name}']}; equal to {checks}; "
+             f"sharded_decode_plain/_run on {list(shards)} shards equal to one device")
+
+    # (b) the 2-bit device ops
+    seqs = parse_seq_file(fasta).seqs
+    rows = torch.from_numpy(pad_rows(seqs.flat, seqs.lengths, align=4)).to(dev)
+    lens = torch.from_numpy(seqs.lengths).to(dev)
+
+    def ops():
+        packed = tb.pack_translate(rows, lens, "base")
+        codes = tb.translate(rows, tb.NUMBER_BASE_LUT)
+        return (packed, codes, tb.pack_2bit(codes, lens), tb.unpack_translate(packed, tb.LOWER_LUT),
+                tb.unpack_2bit(packed))
+
+    (packed, codes, packed2, letters, codes2), secs = main_path(
+        "2-bit ops", SURFACE_KERNELS, ops)
+    base = torch.from_numpy(tb.NUMBER_BASE_LUT).to(dev)
+    identity = torch.arange(256, device=dev).to(torch.uint8) & 3
+    lower = torch.from_numpy(tb.LOWER_LUT).to(dev)
+    twins = {"pack_translate": (packed, tb.pack2bit_twin(rows, lens, base)),
+             "translate": (codes, base[rows.long()]),
+             "pack_2bit": (packed2, tb.pack2bit_twin(codes, lens, identity)),
+             "unpack_translate": (letters, tb.unpack2bit_twin(packed, None, lower)),
+             "unpack_2bit": (codes2, tb.unpack2bit_twin(packed, None, identity[:4]))}
+    bad = [k for k, (got, want) in twins.items() if not torch.equal(got, want)]
+    inlen = torch.arange(rows.shape[1], device=dev)[None, :] < lens.long()[:, None]
+    if bad or not torch.equal(packed, packed2) or not torch.equal(
+            torch.where(inlen, letters[:, :rows.shape[1]], 0),
+            torch.where(inlen, lower[codes.long()], 0)):
+        raise AssertionError(f"2-bit ops: {bad or 'the round trip'} differ")
+    vlog(f"2-bit ops on the .fasta rows {tuple(rows.shape)}: {secs:.4f} s host clock; "
+         f"launches {counts['2-bit ops']}; each equal to its twin, pack_2bit(translate) to "
+         "pack_translate, the unpacked letters to the rows'")
+
+    # (c) the encode step's tools
+    res = step_verify.verify(uniform, dev)
+    log("STEPV: " + json.dumps(res))
+    if not res["step_bytes_ok"]:
+        raise AssertionError("step_verify: the encode step's bytes differ from the native "
+                             "encoder's")
+    log("SPLIT: " + json.dumps(encode_split.split(uniform, long, dev)))
+    log(f"[v1] phase 15: {time.perf_counter() - t_phase:.1f} s wall")
+    return counts
+
+
+class RunRecord:
+    """The record that ``--out FILE`` writes: the UTC time of the start,
+    ``git rev-parse HEAD`` of the checkout chip_smoke.py lies at the root of
+    (None outside one), the card's name and power limit as nvidia-smi gives
+    them, each phase's name, ok and wall seconds, and the kernels line.  It
+    is written at the end, and when a phase fails (that phase with ok
+    false).  Without a path it only keeps the phases."""
+
+    def __init__(self, path: str | None):
+        import datetime
+
+        self.path = path
+        self.data = {"utc": datetime.datetime.now(datetime.timezone.utc).isoformat(),
+                     "git_head": _git_head(), "card": None, "phases": [], "kernels": None,
+                     "ok": False}
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        entry = {"name": name, "ok": False, "seconds": None}
+        self.data["phases"].append(entry)
+        t0 = time.perf_counter()
+        try:
+            yield
+            entry["ok"] = True
+        finally:
+            entry["seconds"] = time.perf_counter() - t0
+            if not entry["ok"]:
+                self.write()
+
+    def write(self):
+        if self.path:
+            with open(self.path, "w") as f:
+                json.dump(self.data, f, indent=1)
+                f.write("\n")
+
+
+def _git_head():
+    """HEAD of the git checkout whose root holds this script, or None."""
+    try:
+        top = subprocess.run(["git", "-C", REPO, "rev-parse", "--show-toplevel", "HEAD"],
+                             capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    lines = top.stdout.split()
+    if top.returncode or len(lines) != 2 or os.path.realpath(lines[0]) != os.path.realpath(REPO):
+        return None
+    return lines[1]
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    p = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
+    p.add_argument("--out", default=None,
+                   help="write a JSON record of the run (phases, card, kernels) to this file")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     from dextractor_tpu_torch.testing import long_quiva, uniform_quiva
 
+    rec = RunRecord(args.out)
+    phase = rec.phase
     t_start = time.perf_counter()
-    phase_environment()
-    phase_build()
+    with phase("1 environment"):
+        rec.data["card"] = phase_environment()
+    with phase("2 build"):
+        phase_build()
     uniform, long = uniform_quiva(), long_quiva()
-    res = phase_encode_kernels("cuda", uniform, long)
-    launches, twins, encoded = phase_encode_slice(True, corpora(uniform, long))
-    _path_launches("encode", launches, twins, ENCODE_KERNELS)
-    phase_encode_step("cuda", uniform, long)
-    res.update(phase_decode_kernels("cuda", encoded))
-    p_launches, p_twins = phase_decode_slice(True, encoded, segmented=False)
-    _path_launches("decode (per-read route)", p_launches, p_twins, DECODE_KERNELS)
-    d_launches, d_twins = phase_decode_slice(True, encoded)
-    _path_launches("decode", d_launches, d_twins, DECODE_KERNELS)
-    launches.update({k: d_launches[k] for k in DECODE_KERNELS})
-    phase_decode_step("cuda", encoded[0][3])
-    phase_decode_long("cuda", encoded[-1][3])
+    with phase("3 encode kernels"):
+        res = phase_encode_kernels("cuda", uniform, long)
+    with phase("4 encode slice"):
+        launches, twins, encoded = phase_encode_slice(True, corpora(uniform, long))
+        _path_launches("encode", launches, twins, ENCODE_KERNELS)
+    with phase("5 encode step"):
+        phase_encode_step("cuda", uniform, long)
+    with phase("6 decode kernels"):
+        res.update(phase_decode_kernels("cuda", encoded))
+    with phase("7 decode slice"):
+        p_launches, p_twins = phase_decode_slice(True, encoded, segmented=False)
+        _path_launches("decode (per-read route)", p_launches, p_twins, DECODE_KERNELS)
+        d_launches, d_twins = phase_decode_slice(True, encoded)
+        _path_launches("decode", d_launches, d_twins, DECODE_KERNELS)
+        launches.update({k: d_launches[k] for k in DECODE_KERNELS})
+    with phase("8 decode step"):
+        phase_decode_step("cuda", encoded[0][3])
+        phase_decode_long("cuda", encoded[-1][3])
     tcases = twobit_corpora()
-    res.update(phase_twobit_kernels("cuda", tcases))
-    t_launches, t_twins = phase_twobit_slice(True, tcases)
-    _path_launches("2-bit", t_launches, t_twins, TWOBIT_KERNELS)
-    launches.update({k: t_launches[k] for k in TWOBIT_KERNELS})
-    res.update(phase_tag_kernel("cuda", encoded))
-    a_launches, a_twins = phase_decode_ablate("cuda")
-    _path_launches("decode phase split", a_launches, a_twins, ("tag_route",))
-    launches["tag_route"] = a_launches["tag_route"]
+    with phase("9 2-bit kernels"):
+        res.update(phase_twobit_kernels("cuda", tcases))
+    with phase("10 2-bit slice"):
+        t_launches, t_twins = phase_twobit_slice(True, tcases)
+        _path_launches("2-bit", t_launches, t_twins, TWOBIT_KERNELS)
+        launches.update({k: t_launches[k] for k in TWOBIT_KERNELS})
+    with phase("11 tag kernel"):
+        res.update(phase_tag_kernel("cuda", encoded))
+    with phase("12 decode phase split"):
+        a_launches, a_twins = phase_decode_ablate("cuda")
+        _path_launches("decode phase split", a_launches, a_twins, ("tag_route",))
+        launches["tag_route"] = a_launches["tag_route"]
     workdir = tempfile.mkdtemp(prefix="chip_smoke_db_")
     try:
-        for route, (l_, t_) in phase_db(True, db_corpora(), workdir=workdir).items():
-            _path_launches(f"DB QV load ({route})", l_, t_, DECODE_KERNELS)
-        decode_counts = phase_multichip(
-            "cuda", [("uniform", uniform), ("long_reads", long)],
-            [(encoded[i][0], encoded[i][1], encoded[i][3]) for i in (0, -1)],
-            tcases[0][1], os.path.join(workdir, "both"))
+        with phase("13 Dazzler DB"):
+            for route, (l_, t_) in phase_db(True, db_corpora(), workdir=workdir).items():
+                _path_launches(f"DB QV load ({route})", l_, t_, DECODE_KERNELS)
+        with phase("14 sharded pipeline"):
+            decode_counts = phase_multichip(
+                "cuda", [("uniform", uniform), ("long_reads", long)],
+                [(encoded[i][0], encoded[i][1], encoded[i][3]) for i in (0, -1)],
+                tcases[0][1], os.path.join(workdir, "both"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log("[multichip] decode kernel launches a shard count (both .dexqv, both routes): "
         + json.dumps({str(k): v for k, v in decode_counts.items()}))
+    with phase("15 v1 decoders and the surface"):
+        v1_counts = phase_v1_surface("cuda", [(encoded[i][0], encoded[i][3]) for i in (0, -1)],
+                                     tcases[0][1], uniform, long)
+    log("[v1] kernel launches a path: " + json.dumps(v1_counts))
     bad = [m for m in sys.modules if m in ("jax", "dextractor_tpu")
            or m.startswith(("jax.", "dextractor_tpu."))]
     if bad:
         raise AssertionError(f"imported {bad}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [
+    kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **res[name]}
-        for name, (src, rep) in KERNELS.items()]}))
+        for name, (src, rep) in KERNELS.items()]}
+    rec.data.update(kernels=kernels["kernels"], ok=True, seconds=time.perf_counter() - t_start)
+    rec.write()
+    print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,8 +37,8 @@ import torch
 
 from ..formats.ragged import bucket_len, next_pow2
 from ..ops import decode2 as d2
+from ..ops.decode_torch import decode_streams, stream_tables
 from ..parallel.mesh import Mesh, check_device, make_mesh
-from ..parallel.multihost import mesh_put
 from ..parallel.pipeline import sharded_decode_entry, sharded_decode_entry_seg
 from ..utils.profiling import stage
 
@@ -321,13 +321,6 @@ def fused_decode_entries_seg(buf, starts, rlens, coffs, ntoks, coding, ck,
         return out.cpu().numpy()
 
 
-def _rect_width(spans: np.ndarray) -> np.ndarray:
-    """Per-read pow2 rectangle width in u32 words for byte spans ``spans``
-    (16 words of slack; at least 64), the JAX package's ``_kw_buckets``."""
-    return np.maximum(64, 2 ** np.ceil(np.log2(np.maximum(
-        np.asarray(spans, np.int64) // 4 + 16, 1))).astype(np.int64))
-
-
 def batch_decode_entries(buf: np.ndarray, starts: np.ndarray, rlens: np.ndarray,
                          codings, table: np.ndarray, ascii_mode: int = 1, *,
                          device=None, mesh=None):
@@ -342,7 +335,8 @@ def batch_decode_entries(buf: np.ndarray, starts: np.ndarray, rlens: np.ndarray,
     chain's ``bits`` and ``last``, so the channels decode in turn, delQV,
     delTag, insQV, mergeQV, subQV.  In every channel the reads are grouped
     by coding (one scheme each) and by the pow2 width of the rectangle their
-    entries' bytes need, one launch a group: K4b (``decode_plain`` with C =
+    entries' bytes need, one launch a group (``ops/decode_torch.decode_streams``,
+    the launch path of the v1 decoders too): K4b (``decode_plain`` with C =
     1) for a plain channel, K5 (``decode_run``) and K6 (``expand_runs``) for
     an RLE one.  The delTag's packed bytes follow delQV: K6 places their
     letters beside delQV's literals, or, with delQV plain, they are unpacked
@@ -354,12 +348,11 @@ def batch_decode_entries(buf: np.ndarray, starts: np.ndarray, rlens: np.ndarray,
     Returns (rows (5, N, max_len) u8 host rows, valid up to each entry's
     length, rlens (N,) i64); ``ascii_mode`` sets the delTag's letters (1
     lower case, 2 upper case, 0 the numeric codes 0-3)."""
-    from ..ops import decode_chains, expand
+    from ..ops import expand
     from ..ops import twobit as tb
 
     mesh = _mesh(device, mesh)
     device = mesh.device
-    put = mesh_put(mesh)
     n = len(starts)
     rlens = np.asarray(rlens, np.int32)
     starts = np.asarray(starts, np.int64)
@@ -376,58 +369,34 @@ def batch_decode_entries(buf: np.ndarray, starts: np.ndarray, rlens: np.ndarray,
         return len(schemes) - 1
 
     # (del, drun, ins, mrg, sub, srun) scheme ids of each coding
-    sids = [[sidx(s) for s in (c.del_scheme, c.drun_scheme, c.ins_scheme,
-                               c.mrg_scheme, c.sub_scheme, c.srun_scheme)]
-            for c in codings]
-    f1, f2, subw, lmax = d2.scheme_tables2(schemes)
-    sig = [255 if s.type == 2 else 256 for s in schemes]
-    sw = [subw if ((f1[k] >> 20) & 1).any() else 0 for k in range(len(schemes))]
-    shard_devs = {mesh.devices[g] for g in mesh.local}
-    f1_d = {d: torch.from_numpy(f1).to(d) for d in shard_devs}
-    f2_d = {d: torch.from_numpy(f2).to(d) for d in shard_devs}
+    sids = np.array([[sidx(s) for s in (c.del_scheme, c.drun_scheme, c.ins_scheme,
+                                        c.mrg_scheme, c.sub_scheme, c.srun_scheme)]
+                     for c in codings], np.int64).reshape(len(codings), 6)
+    for s in schemes:
+        s.with_lookup()
+    tables = stream_tables([s.lookup for s in schemes], [s.codelens for s in schemes],
+                           [s.type for s in schemes], {mesh.devices[g] for g in mesh.local})
     # an entry's byte span (to the next entry's start) bounds each stream
     entry_ends = np.concatenate([starts[1:], [len(buf)]])
     out = torch.zeros((5, n, max_len), dtype=torch.uint8, device=device)
 
-    def groups(chan_starts):
-        """(coding, reads, rectangle width, max_len): one launch each."""
-        kws = _rect_width(entry_ends - chan_starts)
-        for ci in np.unique(tbl):
-            for kw in np.unique(kws[tbl == ci]):
-                sel = np.flatnonzero((tbl == ci) & (kws == kw))
-                ml = bucket_len(int(rlens[sel].max(initial=0)), 512)
-                yield int(ci), sel, int(kw), ml
-
-    def chains(chan, ci, sel, kw, ml, chan_starts):
-        """Channel ``chan`` (0 del, 2 ins, 3 mrg, 4 sub) of the reads
-        ``sel``: K4b for a plain stream, K5 for an RLE one, over the shards
-        of ``mesh``.  Returns (symbol rows (n_g, ml) u8 or
-        the tokens (runs, lits), the run character or -1, the stream's u32
-        words (n_g,) i64 on the host)."""
-        coding = codings[ci]
-        rchar = {0: coding.del_char, 4: coding.sub_char}.get(chan, -1)
-        s = sids[ci][chan]
-        r = sids[ci][chan + 1] if rchar >= 0 else s
-
-        def kern(rect, rl):
-            dev = rl.device
-            if rchar < 0:
-                syms, bits, last = decode_chains.decode_plain(
-                    [rect], rl, f1_d[dev][s:s + 1], f2_d[dev], [sig[s]], [sw[s]],
-                    max_len=ml, lmax=lmax)
-                return syms[0], bits[0], last[0]
-            return decode_chains.decode_run(
-                rect, rl, f1_d[dev][r], f1_d[dev][s], f2_d[dev], sig[s], max_tokens=ml,
-                subw=max(sw[s], sw[r]), lmax=lmax)
-
-        with stage("rects"):
-            rect = d2.build_entry_rect(buf, chan_starts[sel], kw)
-        with stage("step"):
-            parts = [kern(x, rl) for x, rl in zip(put(rect), put(rlens[sel]))]
-            got = [torch.cat([p[i].to(device) for p in parts])[:len(sel)]
-                   for i in range(len(parts[0]))]
-            words = d2.stream_word_counts(got[-2].cpu().numpy(), got[-1].cpu().numpy())
-        return (got[0] if rchar < 0 else tuple(got[:2])), rchar, words
+    def chains(chan, chan_starts):
+        """Channel ``chan`` (0 del, 2 ins, 3 mrg, 4 sub) of every read,
+        through ``decode_streams``: K4b for a plain stream, K5 for an RLE
+        one, one launch a group of reads of one coding and rectangle width,
+        over the shards of ``mesh``.  Yields, a group, (its reads, max_len,
+        the symbol rows (n_g, max_len) u8 or the tokens (runs, lits), the run
+        character or -1, the streams' u32 words (n_g,) i64 on the host)."""
+        rchars = np.array([{0: c.del_char, 4: c.sub_char}.get(chan, -1) for c in codings])
+        run_ids = np.where(rchars >= 0, sids[:, chan + 1], -1)[tbl]
+        for sel, ml, got in decode_streams(
+                mesh, buf, chan_starts, entry_ends - chan_starts, rlens,
+                sids[tbl, chan], run_ids, tables,
+                lambda sel: bucket_len(int(rlens[sel].max(initial=0)), 512)):
+            rchar = int(rchars[tbl[sel[0]]])
+            with stage("step"):
+                words = d2.stream_word_counts(got[-2].cpu().numpy(), got[-1].cpu().numpy())
+            yield sel, ml, (got[0] if rchar < 0 else tuple(got[:2])), rchar, words
 
     in_read = (torch.arange(max_len, device=device)[None, :]
                < torch.from_numpy(rlens).to(device)[:, None])
@@ -435,8 +404,7 @@ def batch_decode_entries(buf: np.ndarray, starts: np.ndarray, rlens: np.ndarray,
     # length is the read's kept (non-delChar) symbols
     tag_starts = np.zeros(n, np.int64)
     clens = rlens.astype(np.int64)
-    for ci, sel, kw, ml in groups(starts):
-        got, rchar, words = chains(0, ci, sel, kw, ml, starts)
+    for sel, ml, got, rchar, words in chains(0, starts):
         tag_starts[sel] = starts[sel] + 4 * words
         with stage("rects"):
             idx = tag_starts[sel][:, None] + np.arange(max(ml // 4, 1))
@@ -458,8 +426,7 @@ def batch_decode_entries(buf: np.ndarray, starts: np.ndarray, rlens: np.ndarray,
     chan_starts = tag_starts + ((clens + 3) >> 2)
     for chan in (2, 3, 4):
         nxt = np.zeros(n, np.int64)
-        for ci, sel, kw, ml in groups(chan_starts):
-            got, rchar, words = chains(chan, ci, sel, kw, ml, chan_starts)
+        for sel, ml, got, rchar, words in chains(chan, chan_starts):
             with stage("step"):
                 rows = got if rchar < 0 else expand.expand_runs(*got, rchar, max_len=ml)[0]
                 out[chan, torch.from_numpy(sel).to(device), :ml] = rows

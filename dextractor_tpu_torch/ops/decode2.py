@@ -50,21 +50,31 @@ def scheme_tables2(schemes, lmax_bucket: int | None = None):
     ``len << 9 | sym`` rows, each ``subw = 2^(lmax-8)`` wide over window
     bits [8, lmax).  Returns (F1, F2flat, subw, lmax).
     """
-    lmax = 1
     for s in schemes:
         s.with_lookup()
-        lmax = max(lmax, int(s.codelens.max(initial=1)))
+    return lookup_tables2([s.lookup for s in schemes], [s.codelens for s in schemes],
+                          lmax_bucket)
+
+
+def lookup_tables2(lookups, codelens, lmax_bucket: int | None = None):
+    """``scheme_tables2`` from each scheme's 64K peek table (65536,), the
+    symbol of every 16-bit window, and its code lengths (256,): the tables
+    of the JAX package's v1 decoders (``lookups`` (S, 65536), ``lens_tbl``
+    (S, 256)), whose codes are at most 16 bits long."""
+    lmax = 1
+    for lens in codelens:
+        lmax = max(lmax, int(np.asarray(lens).max(initial=1)))
     if lmax_bucket is not None:
         lmax = max(lmax, lmax_bucket)
     lmax = 8 if lmax <= 8 else (12 if lmax <= 12 else 16)
     subw = 0 if lmax == 8 else 1 << (lmax - 8)
 
-    f1 = np.zeros((len(schemes), 256), np.int32)
+    f1 = np.zeros((len(lookups), 256), np.int32)
     f2_rows: list[np.ndarray] = []
     hi = np.arange(256) << 8
-    for i, s in enumerate(schemes):
-        look = s.lookup
-        lens = s.codelens.astype(np.int32)
+    for i, (look, lens) in enumerate(zip(lookups, codelens)):
+        look = np.asarray(look)
+        lens = np.asarray(lens).astype(np.int32)
         sym0 = look[hi]
         l0 = lens[sym0]
         term = l0 <= 8

@@ -12,12 +12,21 @@ package's, quirks included (``Number_Arrow`` maps 'G'->2 in addition to
 holds each against its original.
 
 ``unpack_2bit_np`` unpacks the delTag bytes of the host walker
-(``codecs/qv_codec.decode_entry``).
+(``codecs/qv_codec.decode_entry``); ``change_read`` and ``print_read`` are
+the reference's Change_Read and Print_Read on the host.
 
 ``pack2bit_twin`` and ``unpack2bit_twin`` are the plain versions of the CUDA
 kernels ``dxt_pack2bit`` (K7) and ``dxt_unpack2bit`` (ops/pack2bit.py): the
 wrappers run them for tensors on the CPU, and ``chip_smoke.py`` holds each
 kernel against its twin on the card.
+
+The device ops of the JAX package's module run on those kernels, on
+rectangles of reads (row i of an (N, L) rectangle is read i, at offset i*L
+of the flat buffer the kernels take): ``pack_translate`` and ``pack_2bit``
+on K7, ``unpack_translate`` and ``unpack_2bit`` on the unpack, and
+``translate`` on K9 (ops/lut.py).  Each runs where its tensor lies (a CUDA
+tensor goes to the kernel, a CPU one to the twin); a NumPy array goes to
+the card, and raises where there is none.
 """
 
 from __future__ import annotations
@@ -59,6 +68,34 @@ NUMBER_ARROW_LUT = _number_arrow_table()
 LOWER_LUT = np.frombuffer(b"acgt", np.uint8).copy()
 UPPER_LUT = np.frombuffer(b"ACGT", np.uint8).copy()
 ARROW_LETTER_LUT = np.frombuffer(b"1234", np.uint8).copy()
+ALPHABET_LUTS = {"base": NUMBER_BASE_LUT, "arrow": NUMBER_ARROW_LUT}
+
+
+def _change_case_table() -> np.ndarray:
+    """acgt <-> ACGT case toggle (reference Change_Read, DB.c:443-465)."""
+    t = np.zeros(256, np.uint8)
+    for ch in b"acgt":
+        t[ch] = ch - 32
+        t[ch - 32] = ch
+    return t
+
+
+CHANGE_CASE_LUT = _change_case_table()
+
+
+def change_read(seq: np.ndarray) -> np.ndarray:
+    """Toggle sequence case (Change_Read)."""
+    return CHANGE_CASE_LUT[seq]
+
+
+def print_read(codes: np.ndarray, width: int = 80) -> bytes:
+    """Numeric codes -> lowercase text wrapped at ``width``
+    (reference Print_Read, DB.c:1164-1183)."""
+    sym = LOWER_LUT[codes]
+    out = []
+    for i in range(0, len(sym), width):
+        out.append(sym[i:i + width].tobytes())
+    return b"\n".join(out) + b"\n" if out else b""
 
 
 def pack_2bit_np(codes: np.ndarray, lengths: np.ndarray | None = None) -> np.ndarray:
@@ -159,3 +196,115 @@ def unpack2bit_twin(packed: torch.Tensor, lengths: torch.Tensor | None,
     byte = packed[_exclusive_cumsum(compressed_len(rlens))[read] + (j >> 2)]
     codes = (byte.to(torch.int64) >> (6 - 2 * (j & 3))) & 3
     return letters[codes]
+
+
+# ---------------------------------------------------------------------------
+# the device ops: K7, the unpack and K9 on rectangles of reads
+# ---------------------------------------------------------------------------
+
+_IDENTITY_LUT = (np.arange(256) & 3).astype(np.uint8)
+
+
+def _tensor(x, device=None) -> torch.Tensor:
+    """``x`` as a tensor: a tensor as it is, a NumPy array on ``device``
+    (None: the card)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    dev = dispatch.resolve_device(True) if device is None else device
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+
+def _host_lut(lut) -> np.ndarray:
+    return np.asarray(lut.cpu() if isinstance(lut, torch.Tensor) else lut, np.uint8)
+
+
+def pack_rows(rows, lengths, lut) -> torch.Tensor:
+    """Number_Read + Compress_Read of a rectangle through one K7 launch:
+    (N, L) u8 rows, lengths (N,) and a (256,) code table (its low two bits
+    are kept) -> (N, ceil(L/4)) u8, first code in bits 7-6.  Rectangle row
+    i is read i of L bases at offset i*L, its payload at i*ceil(L/4).  The
+    bases at or past a row's length become a byte whose code is 0; with a
+    table that has none, the rows are translated first and K7 packs them
+    through the identity table."""
+    rows = _tensor(rows)
+    n, l = rows.shape
+    dev = rows.device
+    w = (l + 3) // 4
+    lut = _host_lut(lut)
+    inlen = torch.arange(l, device=dev)[None, :] < _tensor(lengths, dev).long()[:, None]
+    zero = np.flatnonzero((lut & 3) == 0)
+    if len(zero):
+        flat = torch.where(inlen, rows, int(zero[0]))
+        table = torch.from_numpy(lut).to(dev)
+    else:
+        flat = torch.where(inlen, torch.from_numpy(lut).to(dev)[rows.long()], 0)
+        table = torch.from_numpy(_IDENTITY_LUT).to(dev)
+    step = torch.arange(n + 1, device=dev, dtype=torch.int64)
+    from .pack2bit import pack2bit
+
+    return pack2bit(flat.reshape(-1).contiguous(), step * l, step * w, table,
+                    n * w).reshape(n, w)
+
+
+def pack_translate(rows, lengths, alphabet: str = "base") -> torch.Tensor:
+    """Letter map + 2-bit pack: (N, L) ascii -> (N, ceil(L/4)) u8 through
+    K7 (the JAX package's ``pack_translate``, which takes L a multiple of
+    4).  alphabet "base": acgt/ACGT -> 0..3, anything else 0 (Number_Read,
+    DB.c:367-416); "arrow": '1'..'4' -> 0..3, 'G' -> 2, anything else 3
+    (Number_Arrow, DB.c:418-441).  Positions at or past a row's length pack
+    as 0 (DB.c:329-331)."""
+    if alphabet not in ALPHABET_LUTS:
+        raise ValueError(f"unknown alphabet {alphabet!r}")
+    return pack_rows(rows, lengths, ALPHABET_LUTS[alphabet])
+
+
+def pack_2bit(codes, lengths=None, *, mask: bool = True) -> torch.Tensor:
+    """2-bit pack of (N, L) u8 codes 0..3 -> (N, L//4) u8 through K7 and the
+    identity table; L must be a multiple of 4.  With ``mask`` and
+    ``lengths``, codes at or past a row's length pack as 0.  A code above 3
+    packs as its low two bits (the JAX package's ``pack_2bit`` ORs it in
+    whole, so its high bits land on the codes before it: ROADMAP F6);
+    no caller makes one."""
+    codes = _tensor(codes)
+    n, l = codes.shape
+    if l % 4:
+        raise ValueError("pad L to a multiple of 4")
+    if not (mask and lengths is not None):
+        lengths = torch.full((n,), l, dtype=torch.int64, device=codes.device)
+    return pack_rows(codes, lengths, _IDENTITY_LUT)
+
+
+def unpack_translate(packed, lut) -> torch.Tensor:
+    """Fused 2-bit unpack + letter map: (N, C) u8 -> (N, 4C) u8,
+    ``lut[code]`` for every code of every byte (reference DB.c:342-363 +
+    ``Lower/Upper_Read`` DB.c:367-416), through one launch of the unpack:
+    rectangle row i is a read of 4C letters whose payload is at i*C.  Only
+    the first four entries of ``lut`` are read."""
+    from .pack2bit import unpack2bit
+
+    packed = _tensor(packed)
+    n, c = packed.shape
+    dev = packed.device
+    letters = torch.from_numpy(_host_lut(lut)[:4].copy()).to(dev)
+    step = torch.arange(n + 1, device=dev, dtype=torch.int64)
+    return unpack2bit(packed.reshape(-1).contiguous(), step * c, step * 4 * c, letters,
+                      n * 4 * c).reshape(n, 4 * c)
+
+
+def unpack_2bit(packed) -> torch.Tensor:
+    """2-bit unpack of (N, C) u8 bytes -> (N, 4C) u8 codes 0..3, through the
+    unpack with the letter table 0, 1, 2, 3."""
+    return unpack_translate(packed, np.arange(4, dtype=np.uint8))
+
+
+def translate(data, lut) -> torch.Tensor:
+    """``lut[data]`` for a 256-entry table through one K9 launch
+    (``lut.lut_gather``): data u8 or int32 of any shape, with values in
+    [0, 256); the result has ``data``'s shape and ``lut``'s dtype (u8 for a
+    NumPy table)."""
+    from .lut import lut_gather
+
+    data = _tensor(data).contiguous()
+    table = _tensor(lut, data.device)
+    out = lut_gather(data, table.to(device=data.device, dtype=torch.int32).contiguous())
+    return out.to(table.dtype)

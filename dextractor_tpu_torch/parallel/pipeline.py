@@ -22,8 +22,10 @@ The sharded pipeline runs the same steps over a mesh (parallel/mesh.py):
   phase B  ``sharded_qv_encode``: every shard encodes its block with the
            shared tables through ``qv_encode_step``;
   decode   ``sharded_decode_entry`` and ``sharded_decode_entry_seg`` run
-           ops/decode2's five-channel steps a shard, and
-           ``sharded_twobit_encode``/``_decode`` the 2-bit kernels.
+           ops/decode2's five-channel steps a shard,
+           ``sharded_decode_plain``/``_run`` the v1 stream decoders of
+           ops/decode_torch, and ``sharded_twobit_encode``/``_decode`` the
+           2-bit ops of ops/twobit.
 
 Each ``sharded_*`` function takes the mesh and returns a callable over
 whole host arrays (numpy or tensors), as the JAX package's ``shard_map``s
@@ -455,31 +457,47 @@ def sharded_decode_entry_seg(mesh, *, seg: int, max_tokens: int, del_mode: str,
     return decode
 
 
-_ALPHABET_LUTS = {"base": "NUMBER_BASE_LUT", "arrow": "NUMBER_ARROW_LUT"}
+def sharded_decode_plain(mesh, *, max_len: int):
+    """The v1 plain-stream decode over the mesh: (buf, starts, rlens,
+    scheme_ids, lookups, lens_tbl, types) -> (symbols (N, max_len) u8,
+    total_bits (N,) i32, last_gran (N,) i32), as
+    ``ops/decode_torch.decode_plain_batch`` takes and returns them.  The
+    image and the tables are replicated, the streams split into the mesh's
+    blocks (zero-length streams as padding, so N need not be a multiple of
+    the shard count), each block decoded on its shard's device (K4b), and
+    the outputs gathered in shard order."""
+    from ..ops.decode_torch import decode_plain_batch
+    put = mesh_put(mesh)
+
+    def decode(buf, starts, rlens, scheme_ids, lookups, lens_tbl, types):
+        parts = [decode_plain_batch(buf, s, r, i, lookups, lens_tbl, types, max_len=max_len,
+                                    device=r.device)
+                 for s, r, i in zip(put(starts, 0, torch.int64), put(rlens, 0, torch.int32),
+                                    put(scheme_ids, 0, torch.int32))]
+        m = _local_reads(mesh, len(rlens))
+        return tuple(_gather(mesh, [p[i] for p in parts], m) for i in range(3))
+
+    return decode
 
 
-def _pack_rows(rows, lengths, lut):
-    """(N, L) ascii rows -> (N, ceil(L/4)) 2-bit rows through one K7
-    launch: rectangle row i is read i of L bases at offset i*L, its payload
-    at i*ceil(L/4).  The bases at or past a row's length become a byte
-    whose code is 0; with a table that has none, the rows are translated
-    first and K7 packs them through the identity table."""
-    n, l = rows.shape
-    dev = rows.device
-    w = (l + 3) // 4
-    inlen = _valid(rows, lengths)
-    zero = np.flatnonzero((np.asarray(lut) & 3) == 0)
-    if len(zero):
-        flat = torch.where(inlen, rows, int(zero[0]))
-        table = _as(lut, torch.uint8, dev)
-    else:
-        flat = torch.where(inlen, _as(lut, torch.uint8, dev)[rows.long()], 0)
-        table = torch.arange(256, device=dev).to(torch.uint8) & 3
-    step = torch.arange(n + 1, device=dev, dtype=torch.int64)
-    from ..ops.pack2bit import pack2bit
+def sharded_decode_run(mesh, *, max_tokens: int):
+    """The v1 RLE-stream decode over the mesh: (buf, starts, rlens, sym_ids,
+    run_ids, lookups, lens_tbl, types) -> (runs, lits, n_tokens,
+    total_bits, last_gran), as ``ops/decode_torch.decode_run_batch`` takes
+    and returns them, split and gathered as ``sharded_decode_plain`` (K5)."""
+    from ..ops.decode_torch import decode_run_batch
+    put = mesh_put(mesh)
 
-    return pack2bit(flat.reshape(-1).contiguous(), step * l, step * w, table,
-                    n * w).reshape(n, w)
+    def decode(buf, starts, rlens, sym_ids, run_ids, lookups, lens_tbl, types):
+        parts = [decode_run_batch(buf, s, r, i, j, lookups, lens_tbl, types,
+                                  max_tokens=max_tokens, device=r.device)
+                 for s, r, i, j in zip(put(starts, 0, torch.int64), put(rlens, 0, torch.int32),
+                                       put(sym_ids, 0, torch.int32),
+                                       put(run_ids, 0, torch.int32))]
+        m = _local_reads(mesh, len(rlens))
+        return tuple(_gather(mesh, [p[i] for p in parts], m) for i in range(5))
+
+    return decode
 
 
 def sharded_twobit_encode(mesh, alphabet: str | None = "base"):
@@ -488,18 +506,17 @@ def sharded_twobit_encode(mesh, alphabet: str | None = "base"):
     rows (N, ceil(L/4)) u8, first base in bits 7-6, bases at or past a
     row's length 0: the JAX package's ``pack_translate`` for the alphabets
     "base" and "arrow" (whose tables replace ``number_lut``), its
-    ``pack_2bit(number_lut[rows])`` for None.  One K7 launch a shard, no
-    collective (Compress_Read is per read, DB.c:319-338)."""
+    ``pack_2bit(number_lut[rows])`` for None.  One K7 launch a shard
+    (``ops/twobit.pack_rows``), no collective (Compress_Read is per read,
+    DB.c:319-338)."""
     from ..ops import twobit as tb
-    if alphabet is not None and alphabet not in _ALPHABET_LUTS:
+    if alphabet is not None and alphabet not in tb.ALPHABET_LUTS:
         raise ValueError(f"unknown alphabet {alphabet!r}")
     put = mesh_put(mesh)
 
     def encode(ascii_rows, lengths, number_lut):
-        lut = np.asarray(getattr(tb, _ALPHABET_LUTS[alphabet]) if alphabet else
-                         (number_lut.cpu() if isinstance(number_lut, torch.Tensor)
-                          else number_lut), np.uint8)
-        parts = [_pack_rows(r, l, lut) for r, l in zip(
+        lut = tb.ALPHABET_LUTS[alphabet] if alphabet else number_lut
+        parts = [tb.pack_rows(r, l, lut) for r, l in zip(
             put(ascii_rows, 0, torch.uint8), put(lengths, 0, torch.int64))]
         return _gather(mesh, parts, _local_reads(mesh, len(lengths)))
 
@@ -509,19 +526,13 @@ def sharded_twobit_encode(mesh, alphabet: str | None = "base"):
 def sharded_twobit_decode(mesh):
     """The 2-bit unpack and letter map over the mesh: (packed_rows (N, C),
     letter_lut (4,)) -> (N, 4C) u8, every code of every byte as its letter
-    (the JAX package's ``unpack_translate``).  One unpack launch a shard:
-    row i is a read of 4C letters whose payload is at i*C."""
-    from ..ops.pack2bit import unpack2bit
+    (the JAX package's ``unpack_translate``, ``ops/twobit.unpack_translate``
+    here).  One unpack launch a shard."""
+    from ..ops import twobit as tb
     put = mesh_put(mesh)
 
     def decode(packed_rows, letter_lut):
-        luts = _on_devices(mesh, letter_lut, torch.uint8)
-        parts = []
-        for p in put(packed_rows, 0, torch.uint8):
-            n, c = p.shape
-            step = torch.arange(n + 1, device=p.device, dtype=torch.int64)
-            parts.append(unpack2bit(p.reshape(-1), step * c, step * 4 * c, luts[p.device],
-                                    n * 4 * c).reshape(n, 4 * c))
+        parts = [tb.unpack_translate(p, letter_lut) for p in put(packed_rows, 0, torch.uint8)]
         return _gather(mesh, parts, _local_reads(mesh, len(packed_rows)))
 
     return decode

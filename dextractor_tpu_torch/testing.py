@@ -214,29 +214,29 @@ def uniform_arrow(n_reads: int = 8_000) -> bytes:
 def lognormal_lengths(mb: int = BENCH_MB) -> np.ndarray:
     """PacBio subread mix: log-normal, ~10 kb median, clamped to
     1,500-60,000, drawn until the five-channel payload reaches ~2x the
-    ``mb`` uniform batch."""
+    ``mb`` uniform batch (one read at least)."""
     rng = np.random.default_rng(1)
     target = 2 * mb * 1_000_000 / 5
     lens, tot = [], 0
-    while tot < target:
+    while tot < target or not lens:
         L = int(np.clip(rng.lognormal(np.log(10_000), 0.8), 1_500, 60_000))
         lens.append(L)
         tot += L
     return np.array(lens, np.int64)
 
 
-def uniform_quiva() -> bytes:
-    """The uniform batch of ``bench.py::prep_data(16)``: 1,600 reads of
-    1,950-2,050 symbols, seed 0."""
-    n_reads = max(8, (BENCH_MB * 1_000_000) // (5 * UNIFORM_READ_LEN))
+def uniform_quiva(mb: int = BENCH_MB) -> bytes:
+    """The uniform batch of ``bench.py::prep_data(mb)``: at the default 16
+    MB, 1,600 reads of 1,950-2,050 symbols, seed 0 (8 reads at least)."""
+    n_reads = max(8, (mb * 1_000_000) // (5 * UNIFORM_READ_LEN))
     return make_quiva(np.random.default_rng(0), n_reads=n_reads,
                       min_len=UNIFORM_READ_LEN - 50, max_len=UNIFORM_READ_LEN + 50)
 
 
-def long_quiva() -> bytes:
-    """The log-normal long-read batch of ``bench.py::prep_data(16)``,
-    seed 2."""
-    return make_quiva(np.random.default_rng(2), lengths=lognormal_lengths())
+def long_quiva(mb: int = BENCH_MB) -> bytes:
+    """The log-normal long-read batch of ``bench.py::prep_data(mb)``, seed 2
+    (one read at least)."""
+    return make_quiva(np.random.default_rng(2), lengths=lognormal_lengths(mb))
 
 
 def step_batch(quiva: bytes):

@@ -1,16 +1,22 @@
-"""Per-stage wall time for the CLI's ``-v`` table and ``chip_smoke.py``.
+"""Per-stage wall time for the CLI's ``-v`` table and ``chip_smoke.py``,
+and a profiler trace of a block of code.
 
 The port's own copy of ``dextractor_tpu/utils/profiling.py``'s
 ``StageStat``/``Reporter``/``REPORTER``, without its ``jax.profiler``
-annotation and ``trace_to``.  ``stage(name, nbytes)`` records into the
-port's ``REPORTER``, which ``cli._common.codec_tool`` enables, resets and
-prints.  Device work inside a stage is counted because every stage ends by
-copying its results to the host.
+annotation.  ``stage(name, nbytes)`` records into the port's ``REPORTER``,
+which ``cli._common.codec_tool`` enables, resets and prints.  Device work
+inside a stage is counted because every stage ends by copying its results
+to the host.  ``trace_to(logdir)`` is the counterpart of the JAX package's
+``jax.profiler`` trace: a ``torch.profiler`` trace of the CPU and, where
+there is one, the card, written as one Chrome-trace JSON file that
+Perfetto (ui.perfetto.dev) opens; it costs what the profiler costs, so no
+hot path uses it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import sys
 import time
 from dataclasses import dataclass, field
@@ -62,3 +68,22 @@ REPORTER = Reporter(enabled=False)
 
 def stage(name: str, nbytes: int = 0):
     return REPORTER.stage(name, nbytes)
+
+
+@contextlib.contextmanager
+def trace_to(logdir: str):
+    """Record a torch.profiler trace of the block (CPU activity, and CUDA
+    activity when a card is present) into one Chrome-trace JSON file in
+    ``logdir``, created if absent.  Yields the profiler; its file is
+    ``trace-<pid>-<ns>.json``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(
+        os.path.join(logdir, f"trace-{os.getpid()}-{time.time_ns()}.json"))

@@ -86,7 +86,8 @@ def test_cli_dexqv(corpora, tmp_path):
 
 def test_port_imports_no_jax(tmp_path):
     """In a fresh interpreter: import every module of the port (ops.tag,
-    ops.bitstream, tools.decode_ablate, tools.multichip, parallel.mesh,
+    ops.bitstream, ops.decode_torch, tools.decode_ablate, tools.multichip,
+    tools.step_verify, tools.encode_split, parallel.mesh,
     parallel.multihost, ingest, db, cli.dextract and cli.dex2DB among them)
     and chip_smoke, load the HDF5 shim where libhdf5
     is, encode and decode (.dexqv and .dexta) on the CPU, run the CLI (dexqv,
@@ -94,8 +95,9 @@ def test_port_imports_no_jax(tmp_path):
     every phase of chip_smoke on the CPU at the smallest sizes that reach
     each branch (the wrappers run their twins there; tests/test_torch_decode_*
     cover the decode at larger sizes), phase 14 without its two processes
-    (tests/test_torch_parallel.py spawns them).  Neither jax nor the JAX package may be imported."""
-    path = str(tmp_path / "a.quiva")
+    (tests/test_torch_parallel.py spawns them), phase 15 with two shards, and
+    chip_smoke's ``--out`` record.  Neither jax nor the JAX package may be imported."""
+    path, rpath = str(tmp_path / "a.quiva"), str(tmp_path / "record.json")
     fpath, dpath = str(tmp_path / "g.fasta"), str(tmp_path / "g.dexta")
     code = f"""
 import importlib, pkgutil, sys
@@ -106,7 +108,8 @@ for m in pkgutil.walk_packages(dextractor_tpu_torch.__path__, "dextractor_tpu_to
         importlib.import_module(m.name)
 for m in ("ops.tag", "ops.bitstream", "tools.decode_ablate", "ingest.sam", "ingest.bax",
           "db.access", "db.build", "db.qvtrack", "cli.dextract", "cli.dex2DB",
-          "tools.multichip", "parallel.mesh", "parallel.multihost"):
+          "tools.multichip", "parallel.mesh", "parallel.multihost", "ops.decode_torch",
+          "tools.step_verify", "tools.encode_split"):
     assert "dextractor_tpu_torch." + m in sys.modules
 from dextractor_tpu_torch.native import hdf5_shim
 try:
@@ -168,6 +171,20 @@ with tempfile.TemporaryDirectory() as d:
                                        ("long_reads", longr)],
                                [("mixed", mixed, encode_quiva_to_dexqv(mixed, device=False))],
                                fa, d + "/both", shards=(2,), backend="gloo", spawn=False)
+# phase 15: the v1 decoders on a read over 2,048 symbols, the encode step's
+# tools with the long-read corpus's widest bucket on the emission route
+chip_smoke.phase_v1_surface("cpu", [("small", encode_quiva_to_dexqv(small, device=False)),
+                                    ("mixed", encode_quiva_to_dexqv(mixed, device=False))],
+                            fa, small, longr, shards=(2,))
+import json, os
+assert chip_smoke.main([]) == 1                   # no card: no result
+rec = chip_smoke.RunRecord({rpath!r})
+with rec.phase("one"):
+    pass
+rec.write()
+r = json.load(open({rpath!r}))
+assert r["phases"] == [dict(name="one", ok=True, seconds=r["phases"][0]["seconds"])], r
+assert r["git_head"] is None or len(r["git_head"]) == 40, r
 print(sorted(m for m in sys.modules if m in ("jax", "dextractor_tpu")
              or m.startswith(("jax.", "dextractor_tpu."))))
 """
@@ -189,6 +206,8 @@ print(sorted(m for m in sys.modules if m in ("jax", "dextractor_tpu")
         assert f"decode_dexqv_to_quiva mixed ({route} route): equal on [2]" in r.stdout
     assert "one-rank gloo group, 2 shards" in r.stdout
     assert "[multichip] phase 14: " in r.stdout
+    assert '"step_bytes_ok": true' in r.stdout and "SPLIT: " in r.stdout
+    assert "[v1] phase 15: " in r.stdout and "equal to one device" in r.stdout
 
 
 def test_chip_smoke_reads_ptxas():
